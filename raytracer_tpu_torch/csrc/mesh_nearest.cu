@@ -1,37 +1,83 @@
-// Nearest / any-hit triangle query for 256-ray subtiles (kernel K1).
+// Nearest / any-hit triangle query for 256-ray subtiles (kernel K1), with
+// its supergroup pre-pass (K1b).
 //
 // Replaces the Pallas TPU kernel raytracer_tpu/ops/mesh_pallas.py::_kernel
-// (with its _mt_merge and live_bits), entered through mesh_nearest().
-// Python side: raytracer_tpu_torch/ops/mesh_cuda.py, which also holds the
-// plain PyTorch version of the same function and the supergroup pre-pass.
+// (with its _mt_merge and live_bits), entered through mesh_nearest()
+// (pallas_call at mesh_pallas.py:393), and the XLA pre-pass
+// _live_supergroups. Python side: raytracer_tpu_torch/ops/mesh_cuda.py,
+// which holds the wrappers and the plain PyTorch version of each kernel.
 //
-// What it computes. One CTA of 256 threads per 256-ray subtile (a 16x16
-// pixel block of the frame), one thread per ray. The CTA walks its live
-// supergroups (8 chunks of 1024 triangles) in the pre-pass's front-to-back
-// order. Each chunk is gated by a slab test of its AABB against every
-// ray's running best t as of the supergroup's start; if any ray of the
-// CTA passes (__syncthreads_or), the block copies the chunk's 10 x 1024
-// plane floats (40 KB, contiguous) into shared memory and each thread runs
-// Moller-Trumbore against all 1024 triangles (t > 0 strictly, |det| >= the
-// triangle's det_eps, u, v >= 0, u + v <= 1), keeping the minimum with a
-// strict '<' so the lowest index of a chunk wins. The running t starts at
-// the per-ray cap t_init; hits at or past the cap come out +inf. After each
-// supergroup, any-hit mode collapses found rays to t = 0, and the walk
-// stops once the block's largest running t is at or below the next
-// supergroup's entry distance.
+// What it computes. Per ray: the nearest (t, triangle index, u, v) with
+// t > 0 strictly, |det| >= the triangle's det_eps, u, v >= 0, u + v <= 1,
+// among hits below the per-ray cap (a hit at t >= cap reports +inf); on an
+// exact tie in t the lowest triangle index wins. Any-hit mode reports t = 0
+// if some hit lies below the cap, +inf otherwise.
 //
-// What bounds it on an H100. Per gated ray x triangle test about 50 f32
-// operations against 10 plane floats that every thread of the CTA reads
-// from the same shared-memory address (a broadcast); the planes of a live
-// chunk cross from device memory once per CTA that needs them. With the
-// gates culling most chunks, the floor is the f32 rate on the tests that
-// pass (67 TFLOP/s), not the 3.35 TB/s of device memory. This first
-// version is plain: the chunk copy is synchronous (no cp.async/TMA double
-// buffer), the gate is per block, and each triangle costs ten scalar
-// shared-memory loads. Those are the levers of a later version.
+// What bounds it on an H100. A ray x triangle test is about 50 f32
+// operations (one of them an IEEE division) against 10 plane floats that
+// every lane of a warp reads from one shared-memory address (a broadcast).
+// The gates cull most chunks, so the floor is the f32 rate on the tests
+// the per-ray gates let through (67 TFLOP/s); the live planes, read once,
+// take far less time at 3.35 TB/s. What kept the first version (one CTA of
+// 256 threads per subtile, 64 CTAs for a 16,384-ray call) from that floor:
+// a subtile's chunks ran as one serial chain on one SM while 68 SMs idled,
+// and each chunk was a 1024-long dependent loop per thread; a warp ran the
+// tests of any ray of its block; the copy waited for nothing to overlap.
+// The design, step by step:
+//
+// 1. Fill the card. The grid is (subtile, slice): S slices per subtile.
+//    The subtile's work is its pre-pass list of live supergroups, front to
+//    back, cut into units of STAGE triangles: (supergroup, chunk, part) in
+//    that order, 8 chunks a supergroup. Slice s takes units s, s + S,
+//    s + 2S, ... The wrapper picks S = min(units per supergroup,
+//    ceil(4096 / subtiles)): with 128-triangle units, S = 64 for a
+//    16,384-ray call (4,096 CTAs of at most 128 tests in a row per thread),
+//    S = 8 for 131,072 rays. Splitting finer than a chunk shortens the
+//    longest serial chain, which sets the call's time (PERF.md has the
+//    measured table of unit sizes and slice counts behind the choice).
+//    Slices merge through one 64-bit word per ray, (float bits of t) << 32
+//    | triangle index, reduced with atomicMin: positive floats order as
+//    their bits, so the smallest word is the nearest hit and, on a tie,
+//    the lowest index (the plain version's first minimum). Before each
+//    gate a CTA re-reads its rays' words, so gates and the early exit use
+//    the best t any slice has found; both stay conservative (the gate is
+//    tmin <= best t, so a tie at the box's entry is still tested). The walk
+//    stops once no ray's best t reaches the entry distance of the
+//    supergroup of the slice's next unit. mesh_finish_kernel then unpacks
+//    each word and recomputes u and v of the winner with the walk's own
+//    operations, which gives the same bits.
+// 2. Gate per warp. The slab test runs per ray; a warp with no live ray
+//    skips the unit (__any_sync). The block stages a unit only if some ray
+//    of it is live (__syncthreads_or). Within a unit, a warp also skips the
+//    rest of a triangle's test once the u test has failed for all its live
+//    rays: the rays of a warp are neighbours in the image.
+// 3. Any-hit leaves as soon as found. A found ray sets its word to 0 (no
+//    hit has t = 0, since t > 0 strictly) and its gates close. A shadow
+//    ray starts on a surface inside chunk boxes, where the slab tmin is
+//    often < 0, so the flag, and not t = 0, closes them. A warp whose live
+//    lanes are all found leaves the unit (checked every 32 triangles); a
+//    CTA whose rays are all found stops; other slices see the word at
+//    their next gate.
+// 4. Stage asynchronously. A two-stage ring in dynamic shared memory is
+//    filled by cp.async.bulk (the TMA's 1-D bulk copy, completion on an
+//    mbarrier): one copy per plane row of the unit (a whole chunk's 10 rows
+//    are 40 KB contiguous and go in one copy). The next live unit's copy is
+//    issued before the current unit's tests, its gate evaluated early with
+//    the best t known then (conservative). The ring is 2 x 5 KB at 128
+//    triangles, under the 48 KB default; the launcher still raises the
+//    dynamic shared-memory limit for the larger units it can build.
+// 5. Empty boxes. Padding chunks carry min > max; the gate tests lo <= hi
+//    on each axis, so they are never live. Their triangles never hit
+//    (det_eps = +inf), so only the tests counted drop.
+// 6. The pre-pass (live_supergroups_kernel): one CTA per subtile, a warp
+//    reduction per supergroup of each ray's clamped entry distance, then a
+//    rank sort of the unique keys (entry bits << 32 | id) in shared memory:
+//    exactly the ids, counts and entries of the torch version's stable
+//    sort, in one launch instead of about 15. O(n_super^2 / 256) compares
+//    per CTA.
 //
 // Arithmetic. Built with -fmad=false and IEEE division: every sum is
-// written in the order _mt_merge uses, so the kernel rounds exactly as the
+// written in the order _mt_merge uses, so the kernels round exactly as the
 // plain PyTorch version (separate, unfused tensor ops) does.
 
 #include <cuda_runtime.h>
@@ -44,142 +90,463 @@ constexpr int RT = 256;        // rays per subtile = threads per CTA
 constexpr int CHUNK = 1024;    // triangles per chunk
 constexpr int SG = 8;          // chunks per supergroup
 constexpr int N_PLANES = 10;   // p1.xyz, e1.xyz, e2.xyz, det_eps
+constexpr int WARPS = RT / 32;
 constexpr float EPSILON = 1e-4f;
+constexpr unsigned FULL = 0xffffffffu;
 
+// opts bits (all set on the main path; cleared one by one to measure the
+// steps above)
+constexpr int OPT_WARP_GATE = 1;   // step 2
+constexpr int OPT_FOUND_EXIT = 2;  // step 3
+constexpr int OPT_PREFETCH = 4;    // step 4: copy overlaps the tests
+constexpr int OPT_EMPTY_BOX = 8;   // step 5
+constexpr int OPT_WARP_SKIP = 16;  // a warp skips a triangle all its rays miss
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct WalkArgs {
+  const float* o;
+  const float* d;
+  const float* inv_d;
+  const float* cap;        // [R]
+  const int32_t* ids;      // [n_sub, n_super]
+  const int32_t* cnt;      // [n_sub]
+  const float* ent;        // [n_sub, n_super]
+  const float* bb;         // [6, n_chunks]
+  const float* planes;     // [n_chunks, N_PLANES, CHUNK]
+  u64* best;               // [R] merge words, preset to all ones
+  int n_super;
+  int n_chunks;
+  int slices;
+  int opts;
+};
+
+// Slab test of chunk ch's box against one ray: its entry distance and
+// whether the line meets the box ahead of the origin (the plain version's
+// gate, without the best-t term).
+__device__ __forceinline__ bool chunk_slab(const WalkArgs& a, int ch,
+                                           float ox, float oy, float oz,
+                                           float ix, float iy, float iz,
+                                           float& tmin) {
+  const int n = a.n_chunks;
+  const float lx = a.bb[ch], ly = a.bb[n + ch], lz = a.bb[2 * n + ch];
+  const float hx = a.bb[3 * n + ch], hy = a.bb[4 * n + ch],
+              hz = a.bb[5 * n + ch];
+  const float x0 = (lx - ox) * ix, x1 = (hx - ox) * ix;
+  const float y0 = (ly - oy) * iy, y1 = (hy - oy) * iy;
+  const float z0 = (lz - oz) * iz, z1 = (hz - oz) * iz;
+  tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
+  const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)),
+                           fmaxf(z0, z1));
+  bool geo = (tmin <= tmax + EPSILON) && (tmax >= 0.0f);
+  if (a.opts & OPT_EMPTY_BOX) geo = geo && lx <= hx && ly <= hy && lz <= hz;
+  return geo;
+}
+
+template <int STAGE, bool ANY_HIT>
 __global__ void __launch_bounds__(RT)
-mesh_nearest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ inv_d,
-                    const float* __restrict__ t_init,
-                    const int32_t* __restrict__ ids,
-                    const int32_t* __restrict__ cnt,
-                    const float* __restrict__ ent, int n_super,
-                    const float* __restrict__ bb_chunk, int n_chunks,
-                    const float* __restrict__ planes,
-                    float* __restrict__ t_out, int32_t* __restrict__ idx_out,
-                    float* __restrict__ u_out, float* __restrict__ v_out,
-                    int any_hit) {
-  __shared__ float4 tri4[N_PLANES * CHUNK / 4];  // one chunk: 40 KB
-  __shared__ float red[RT / 32];
-  const float* tri = reinterpret_cast<const float*>(tri4);
+mesh_walk_kernel(const WalkArgs a) {
+  constexpr int PARTS = CHUNK / STAGE;
+  constexpr uint32_t STAGE_FLOATS = N_PLANES * STAGE;
+  extern __shared__ __align__(128) float ring[];   // 2 x [N_PLANES][STAGE]
+  __shared__ __align__(8) uint64_t full[2];
 
-  const int b = blockIdx.x;
-  const int r = b * RT + threadIdx.x;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const float ix = inv_d[3 * r], iy = inv_d[3 * r + 1], iz = inv_d[3 * r + 2];
-  const float cap = t_init[r];
+  const int sub = blockIdx.x / a.slices;
+  const int slice = blockIdx.x % a.slices;
+  const int r = sub * RT + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const float ox = a.o[3 * r], oy = a.o[3 * r + 1], oz = a.o[3 * r + 2];
+  const float dx = a.d[3 * r], dy = a.d[3 * r + 1], dz = a.d[3 * r + 2];
+  const float ix = a.inv_d[3 * r], iy = a.inv_d[3 * r + 1],
+              iz = a.inv_d[3 * r + 2];
+  const float cap = a.cap[r];
 
-  float t = cap;
-  int32_t g = 0;
-  float bu = 0.0f, bv = 0.0f;
+  // bw: the smallest merge word this thread knows, seeded from the cap
+  // (hits at t == cap still submit; mesh_finish_kernel reports them +inf)
+  u64 bw = (static_cast<u64>(__float_as_uint(cap)) << 32) | 0xffffffffull;
+  bool found = false;   // any-hit: a hit below the cap is known
 
-  const int n_live = cnt[b];
-  for (int j = 0; j < n_live; ++j) {
-    const int s = ids[(size_t)b * n_super + j];
-    const float t_start = t;  // live_bits gates on t at supergroup start
-    for (int c = 0; c < SG; ++c) {
-      const int ch = s * SG + c;
-      const float x0 = (bb_chunk[0 * n_chunks + ch] - ox) * ix;
-      const float x1 = (bb_chunk[3 * n_chunks + ch] - ox) * ix;
-      const float y0 = (bb_chunk[1 * n_chunks + ch] - oy) * iy;
-      const float y1 = (bb_chunk[4 * n_chunks + ch] - oy) * iy;
-      const float z0 = (bb_chunk[2 * n_chunks + ch] - oz) * iz;
-      const float z1 = (bb_chunk[5 * n_chunks + ch] - oz) * iz;
-      const float tmin =
-          fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
-      const float tmax =
-          fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
-      const bool live =
-          (tmin <= tmax + EPSILON) && (tmax >= 0.0f) && (tmin < t_start);
-      if (!__syncthreads_or(live)) continue;
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-      const float4* src = reinterpret_cast<const float4*>(
-          planes + (size_t)ch * N_PLANES * CHUNK);
-      for (int k = threadIdx.x; k < N_PLANES * CHUNK / 4; k += RT)
-        tri4[k] = src[k];
-      __syncthreads();
+  // the subtile's units: (live supergroup j, chunk c, part) in that order
+  const int n_units = a.cnt[sub] * SG * PARTS;
+  const int32_t* my_ids = a.ids + (size_t)sub * a.n_super;
+  const float* my_ent = a.ent + (size_t)sub * a.n_super;
 
-      const int base = ch * CHUNK;
-      for (int k = 0; k < CHUNK; ++k) {
-        const float p1x = tri[0 * CHUNK + k], p1y = tri[1 * CHUNK + k],
-                    p1z = tri[2 * CHUNK + k];
-        const float e1x = tri[3 * CHUNK + k], e1y = tri[4 * CHUNK + k],
-                    e1z = tri[5 * CHUNK + k];
-        const float e2x = tri[6 * CHUNK + k], e2y = tri[7 * CHUNK + k],
-                    e2z = tri[8 * CHUNK + k];
-        const float det_eps = tri[9 * CHUNK + k];
+  auto refresh = [&]() {
+    const u64 g = __ldcg(a.best + r);
+    if (g < bw) bw = g;
+    if (ANY_HIT && g == 0ull) found = true;
+  };
+  auto best_t = [&]() { return __uint_as_float((uint32_t)(bw >> 32)); };
 
-        // pvec = d x e2
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        bool ok = fabsf(det) >= det_eps;
-        const float inv_det = 1.0f / (ok ? det : 1.0f);
-
-        const float sx = ox - p1x, sy = oy - p1y, sz = oz - p1z;
-        const float u = (sx * px + sy * py + sz * pz) * inv_det;
-        ok = ok && (u >= 0.0f) && (u <= 1.0f);
-
-        // qvec = s x e1
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
-
-        const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        if (ok && tt > 0.0f && tt < t) {
-          t = tt;
-          g = base + k;
-          bu = u;
-          bv = v;
-        }
+  struct Unit {
+    int k;        // index in the slice's list; -1: none left
+    int ch, part;
+    float tmin;   // this ray's slab entry into the chunk's box
+    bool geo;     // the ray's line meets the box ahead (and it is not empty)
+  };
+  // The slice's next unit, from its k-th on, whose chunk is live for some
+  // ray of the block (block-uniform); k = -1 when none is left or no ray
+  // can still improve.
+  auto next_live = [&](int k) -> Unit {
+    Unit n;
+    for (;; ++k) {
+      const int q = slice + k * a.slices;
+      if (q >= n_units) break;
+      refresh();
+      const int p = q / PARTS;
+      const int j = p / SG;
+      const float tb = best_t();
+      n.ch = my_ids[j] * SG + p % SG;
+      n.part = q % PARTS;
+      n.geo = chunk_slab(a, n.ch, ox, oy, oz, ix, iy, iz, n.tmin);
+      const bool live = !found && n.geo && n.tmin <= tb;
+      if (__syncthreads_or(live)) {
+        n.k = k;
+        return n;
       }
-      __syncthreads();  // the next chunk overwrites the shared planes
+      const bool active = !found && tb >= my_ent[j];
+      if (!__syncthreads_or(active)) break;
+    }
+    n.k = -1;
+    return n;
+  };
+
+  auto issue = [&](const Unit& n, int s) {
+    float* dst = ring + s * STAGE_FLOATS;
+    const float* src =
+        a.planes + (size_t)n.ch * N_PLANES * CHUNK + n.part * STAGE;
+    mbar_expect_tx(&full[s], STAGE_FLOATS * 4);
+    if (PARTS == 1) {
+      bulk_g2s(dst, src, STAGE_FLOATS * 4, &full[s]);
+    } else {
+      for (int q = 0; q < N_PLANES; ++q)
+        bulk_g2s(dst + q * STAGE, src + q * CHUNK, STAGE * 4, &full[s]);
+    }
+  };
+
+  Unit cur = next_live(0);
+  int stage = 0;
+  uint32_t phase = 0;   // bit s: parity of stage s's next completion
+  if (cur.k >= 0 && threadIdx.x == 0) issue(cur, 0);
+
+  while (cur.k >= 0) {
+    // the next live unit, its gate evaluated now with the best t known
+    // now; its copy lands while this unit is tested
+    const Unit nxt = next_live(cur.k + 1);
+    if (nxt.k >= 0) {
+      if (threadIdx.x == 0) issue(nxt, stage ^ 1);
+      if (!(a.opts & OPT_PREFETCH))   // measured ablation: no overlap
+        mbar_wait(&full[stage ^ 1], (phase >> (stage ^ 1)) & 1);
     }
 
-    // any-hit: only existence below the cap matters; found rays' gates
-    // close and the early exit fires once every ray has found one
-    if (any_hit && t < cap) t = 0.0f;
+    refresh();
+    const bool live = !found && cur.geo && cur.tmin <= best_t();
+    const bool warp_live = (a.opts & OPT_WARP_GATE)
+                               ? __any_sync(FULL, live) : true;
+    // warp 0 waits on every copy, so none is in flight when the stage is
+    // filled again or the CTA exits
+    if (warp_live || warp == 0) mbar_wait(&full[stage], (phase >> stage) & 1);
+    if (warp_live) {
+      const float* tri = ring + stage * STAGE_FLOATS;
+      const uint32_t base = (uint32_t)(cur.ch * CHUNK + cur.part * STAGE);
+      const bool skip_u = a.opts & OPT_WARP_SKIP;
+      float tb = best_t();
+      const bool was_found = found;
+      bool improved = false;
+      for (int i0 = 0; i0 < STAGE; i0 += 32) {
+        if (ANY_HIT && (a.opts & OPT_FOUND_EXIT) &&
+            __all_sync(FULL, found || !live))
+          break;
+#pragma unroll 4
+        for (int i = i0; i < i0 + 32; ++i) {
+          const float p1x = tri[0 * STAGE + i], p1y = tri[1 * STAGE + i],
+                      p1z = tri[2 * STAGE + i];
+          const float e1x = tri[3 * STAGE + i], e1y = tri[4 * STAGE + i],
+                      e1z = tri[5 * STAGE + i];
+          const float e2x = tri[6 * STAGE + i], e2y = tri[7 * STAGE + i],
+                      e2z = tri[8 * STAGE + i];
+          const float det_eps = tri[9 * STAGE + i];
 
-    // block max of the running t against the next entry distance
-    float m = t;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-    __syncthreads();
-    float maxt = red[0];
-    for (int w = 1; w < RT / 32; ++w) maxt = fmaxf(maxt, red[w]);
-    const int nxt = min(j + 1, n_super - 1);
-    if (!(j + 1 < n_live && ent[(size_t)b * n_super + nxt] < maxt)) break;
+          // pvec = d x e2
+          const float px = dy * e2z - dz * e2y;
+          const float py = dz * e2x - dx * e2z;
+          const float pz = dx * e2y - dy * e2x;
+          const float det = e1x * px + e1y * py + e1z * pz;
+          bool ok = fabsf(det) >= det_eps;
+          const float inv_det = 1.0f / (ok ? det : 1.0f);
+
+          const float sx = ox - p1x, sy = oy - p1y, sz = oz - p1z;
+          const float u = (sx * px + sy * py + sz * pz) * inv_det;
+          ok = ok && (u >= 0.0f) && (u <= 1.0f);
+          // the rays of a warp are neighbours: most triangles fail the u
+          // test for all of them at once
+          if (skip_u && !__any_sync(FULL, live && !found && ok)) continue;
+
+          // qvec = s x e1
+          const float qx = sy * e1z - sz * e1y;
+          const float qy = sz * e1x - sx * e1z;
+          const float qz = sx * e1y - sy * e1x;
+          const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+          ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
+
+          const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+          if (live && ok && tt > 0.0f && tt <= tb) {
+            if (ANY_HIT) {
+              if (tt < cap) found = true;
+            } else {
+              const u64 w = (static_cast<u64>(__float_as_uint(tt)) << 32) |
+                            (base + (uint32_t)i);
+              if (w < bw) {
+                bw = w;
+                tb = tt;
+                improved = true;
+              }
+            }
+          }
+        }
+      }
+      if (ANY_HIT ? (found && !was_found) : improved)
+        atomicMin(a.best + r, ANY_HIT ? 0ull : bw);
+    }
+
+    phase ^= 1u << stage;
+    stage ^= 1;
+    cur = nxt;
   }
+}
 
-  t_out[r] = (t < cap) ? t : INFINITY;
-  idx_out[r] = g;
-  u_out[r] = bu;
-  v_out[r] = bv;
+// Unpacks each ray's merge word into (t, idx, u, v); u and v of the winner
+// are recomputed with the walk's operations, so they come out bit-equal.
+__global__ void mesh_finish_kernel(const u64* __restrict__ best,
+                                   const float* __restrict__ o,
+                                   const float* __restrict__ d,
+                                   const float* __restrict__ cap_in,
+                                   const float* __restrict__ planes,
+                                   float* __restrict__ t_out,
+                                   int32_t* __restrict__ idx_out,
+                                   float* __restrict__ u_out,
+                                   float* __restrict__ v_out, int n,
+                                   int any_hit) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const u64 w = best[r];
+  const float cap = cap_in[r];
+  const float t = __uint_as_float((uint32_t)(w >> 32));
+  idx_out[r] = 0;
+  u_out[r] = 0.0f;
+  v_out[r] = 0.0f;
+  if (any_hit) {
+    t_out[r] = (w == 0ull) ? 0.0f : INFINITY;
+    return;
+  }
+  if (!(t < cap)) {
+    t_out[r] = INFINITY;
+    return;
+  }
+  const uint32_t g = (uint32_t)w;
+  const float* tri = planes + (size_t)(g / CHUNK) * N_PLANES * CHUNK + g % CHUNK;
+  const float p1x = tri[0 * CHUNK], p1y = tri[1 * CHUNK], p1z = tri[2 * CHUNK];
+  const float e1x = tri[3 * CHUNK], e1y = tri[4 * CHUNK], e1z = tri[5 * CHUNK];
+  const float e2x = tri[6 * CHUNK], e2y = tri[7 * CHUNK], e2z = tri[8 * CHUNK];
+  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv_det = 1.0f / det;
+  const float sx = ox - p1x, sy = oy - p1y, sz = oz - p1z;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  t_out[r] = t;
+  idx_out[r] = (int32_t)g;
+  u_out[r] = (sx * px + sy * py + sz * pz) * inv_det;
+  v_out[r] = (dx * qx + dy * qy + dz * qz) * inv_det;
+}
+
+// K1b: one CTA per subtile. Entry distance of each ray into each
+// supergroup box (+inf when the ray's line misses it, passes behind the
+// origin, or enters past the cap), reduced to the subtile's minimum; the
+// live supergroups (finite minimum) then sorted by (entry, id).
+__global__ void __launch_bounds__(RT)
+live_supergroups_kernel(const float* __restrict__ o,
+                        const float* __restrict__ inv_d,
+                        const float* __restrict__ bb_super, int n_super,
+                        const float* __restrict__ t_cap,
+                        int32_t* __restrict__ ids, int32_t* __restrict__ cnt,
+                        float* __restrict__ ent) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  u64* key = reinterpret_cast<u64*>(smem);                     // [n_super]
+  float* wmin = reinterpret_cast<float*>(key + n_super);       // [WARPS][n_super]
+  __shared__ int n_live;
+
+  const int sub = blockIdx.x;
+  const int r = sub * RT + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+  const float ix = inv_d[3 * r], iy = inv_d[3 * r + 1], iz = inv_d[3 * r + 2];
+  const float cap = t_cap ? t_cap[r] : INFINITY;
+  if (threadIdx.x == 0) n_live = 0;
+
+  for (int s = 0; s < n_super; ++s) {
+    const float x0 = (bb_super[s] - ox) * ix;
+    const float x1 = (bb_super[3 * n_super + s] - ox) * ix;
+    const float y0 = (bb_super[n_super + s] - oy) * iy;
+    const float y1 = (bb_super[4 * n_super + s] - oy) * iy;
+    const float z0 = (bb_super[2 * n_super + s] - oz) * iz;
+    const float z1 = (bb_super[5 * n_super + s] - oz) * iz;
+    const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)),
+                             fminf(z0, z1));
+    const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)),
+                             fmaxf(z0, z1));
+    const bool hit = (tmin <= tmax + EPSILON) && (tmax >= 0.0f) &&
+                     (tmin <= cap);
+    float e = hit ? fmaxf(tmin, 0.0f) : INFINITY;
+    for (int off = 16; off > 0; off >>= 1)
+      e = fminf(e, __shfl_xor_sync(FULL, e, off));
+    if (lane == 0) wmin[warp * n_super + s] = e;
+  }
+  __syncthreads();
+
+  for (int s = threadIdx.x; s < n_super; s += RT) {
+    float e = wmin[s];
+    for (int w = 1; w < WARPS; ++w) e = fminf(e, wmin[w * n_super + s]);
+    if (e < INFINITY) atomicAdd(&n_live, 1);
+    // -0 keys as +0, as the torch sort compares them
+    key[s] = (static_cast<u64>(e == 0.0f ? 0u : __float_as_uint(e)) << 32) |
+             (uint32_t)s;
+  }
+  __syncthreads();
+
+  for (int s = threadIdx.x; s < n_super; s += RT) {
+    const u64 ks = key[s];
+    int rank = 0;
+    for (int q = 0; q < n_super; ++q) rank += key[q] < ks;
+    ids[(size_t)sub * n_super + rank] = s;
+    ent[(size_t)sub * n_super + rank] = __uint_as_float((uint32_t)(ks >> 32));
+  }
+  if (threadIdx.x == 0) cnt[sub] = n_live;
+}
+
+template <int STAGE, bool ANY_HIT>
+cudaError_t launch_walk(const WalkArgs& a, int n_sub, cudaStream_t stream) {
+  const int smem = 2 * N_PLANES * STAGE * (int)sizeof(float);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mesh_walk_kernel<STAGE, ANY_HIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  mesh_walk_kernel<STAGE, ANY_HIT><<<n_sub * a.slices, RT, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). n_rays must be a multiple of
-// 256; every pointer is device memory; the launch goes on `stream`.
-// Returns cudaGetLastError() right after the launch.
-extern "C" int mesh_nearest_launch(const float* o, const float* d,
-                                   const float* inv_d, const float* t_init,
-                                   const int32_t* ids, const int32_t* cnt,
-                                   const float* ent, int n_super,
-                                   const float* bb_chunk, int n_chunks,
-                                   const float* planes, float* t_out,
-                                   int32_t* idx_out, float* u_out,
-                                   float* v_out, int n_rays, int any_hit,
-                                   void* stream) {
+// Plain C entry points (bound with ctypes). n_rays must be a multiple of
+// 256; every pointer is device memory; launches go on `stream`. Each
+// returns the first CUDA error of its launches (0 when all were accepted).
+
+// K1: presets the merge words, walks (subtile, slice) CTAs, unpacks.
+// stage_tris (1024, 512, 256 or 128) is the triangles per ring stage, the
+// unit a slice takes.
+extern "C" int mesh_nearest_launch(
+    const float* o, const float* d, const float* inv_d, const float* cap,
+    const int32_t* ids, const int32_t* cnt, const float* ent, int n_super,
+    const float* bb_chunk, int n_chunks, const float* planes, u64* best,
+    float* t_out, int32_t* idx_out, float* u_out, float* v_out, int n_rays,
+    int any_hit, int slices, int stage_tris, int opts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_sub = n_rays / RT;
-  if (n_sub > 0) {
-    mesh_nearest_kernel<<<n_sub, RT, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, inv_d, t_init, ids, cnt, ent, n_super, bb_chunk, n_chunks,
-        planes, t_out, idx_out, u_out, v_out, any_hit);
+  if (n_sub == 0) return 0;
+  if (slices < 1 || (stage_tris != 128 && stage_tris != 256 &&
+                     stage_tris != 512 && stage_tris != 1024))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(best, 0xff, sizeof(u64) * n_rays, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const WalkArgs a{o, d, inv_d, cap, ids, cnt, ent, bb_chunk, planes, best,
+                   n_super, n_chunks, slices, opts};
+  if (stage_tris == 1024)
+    e = any_hit ? launch_walk<1024, true>(a, n_sub, st)
+                : launch_walk<1024, false>(a, n_sub, st);
+  else if (stage_tris == 512)
+    e = any_hit ? launch_walk<512, true>(a, n_sub, st)
+                : launch_walk<512, false>(a, n_sub, st);
+  else if (stage_tris == 256)
+    e = any_hit ? launch_walk<256, true>(a, n_sub, st)
+                : launch_walk<256, false>(a, n_sub, st);
+  else
+    e = any_hit ? launch_walk<128, true>(a, n_sub, st)
+                : launch_walk<128, false>(a, n_sub, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mesh_finish_kernel<<<(n_rays + RT - 1) / RT, RT, 0, st>>>(
+      best, o, d, cap, planes, t_out, idx_out, u_out, v_out, n_rays, any_hit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1b: ids/ent [n_sub, n_super], cnt [n_sub]; t_cap may be null.
+extern "C" int live_supergroups_launch(const float* o, const float* inv_d,
+                                       const float* bb_super, int n_super,
+                                       const float* t_cap, int32_t* ids,
+                                       int32_t* cnt, float* ent, int n_rays,
+                                       void* stream) {
+  const int n_sub = n_rays / RT;
+  if (n_sub == 0) return 0;
+  const size_t smem = (size_t)n_super * (sizeof(u64) + WARPS * sizeof(float));
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        live_supergroups_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem;
   }
+  live_supergroups_kernel<<<n_sub, RT, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      o, inv_d, bb_super, n_super, t_cap, ids, cnt, ent);
   return static_cast<int>(cudaGetLastError());
 }

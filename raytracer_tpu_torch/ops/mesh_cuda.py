@@ -8,10 +8,11 @@ Counterpart of ``raytracer_tpu/ops/mesh_pallas.py``:
   the same function in plain torch. Nothing else selects the route.
 * K1b :func:`live_supergroups` — the per-subtile pre-pass: live
   supergroups of each 256-ray subtile sorted front to back by frustum
-  entry distance, as torch ops.
+  entry distance. A CUDA tensor launches its kernel (same source); a CPU
+  tensor takes :func:`live_supergroups_plain`.
 * K1c :func:`pack_tri_planes_np` — the packed plane layout
   ``[n_super, SG, N_PLANES*CHUNK]``: each chunk's 10 plane rows are 40 KB
-  contiguous, which is what the kernel's shared-memory copy reads.
+  contiguous, which is what the kernel's bulk copy reads.
 
 Returns per ray (t, tri_index, u, v); misses have t=+inf.
 """
@@ -32,9 +33,15 @@ import torch
 from raytracer_tpu_torch.constants import EPSILON
 
 RT = 256           # rays per subtile = threads per CTA (one 16x16 block)
-CHUNK = 1024       # triangles per chunk (one shared-memory stage, 40 KB)
+CHUNK = 1024       # triangles per chunk (the unit of the gate)
 N_PLANES = 10      # p1.xyz, e1.xyz, e2.xyz, det_eps (per-tri MT threshold)
 SG = 8             # chunks per supergroup (the pre-pass granularity)
+TARGET_CTAS = 4096  # K1 splits subtiles until a call launches about this many
+STAGE_TRIS = 128   # triangles per ring stage = per unit of a slice
+# csrc/mesh_nearest.cu's opts bits, all on: per-warp gate, any-hit exit,
+# copy/test overlap, empty-box gate, per-warp triangle skip (cleared only
+# to measure each step)
+KERNEL_OPTS = 0x1F
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "mesh_nearest.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -88,12 +95,28 @@ def _library():
         if _lib is None:
             path, _ = build_library()
             lib = ctypes.CDLL(str(path))
-            fn = lib.mesh_nearest_launch
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, i, i, p]
-            fn.restype = ctypes.c_int
+            lib.mesh_nearest_launch.argtypes = [
+                p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i,
+                p]
+            lib.live_supergroups_launch.argtypes = [p, p, p, i, p, p, p, p, i,
+                                                    p]
+            lib.mesh_nearest_launch.restype = ctypes.c_int
+            lib.live_supergroups_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def slices_for(n_sub: int, stage_tris: int | None = None) -> int:
+    """K1's slices per subtile: enough CTAs to fill the card (about
+    TARGET_CTAS), at most one slice per unit (stage) of a supergroup."""
+    units = SG * CHUNK // (stage_tris or STAGE_TRIS)
+    return max(1, min(units, -(-TARGET_CTAS // max(n_sub, 1))))
 
 
 def inverse_dirs(d):
@@ -101,9 +124,8 @@ def inverse_dirs(d):
     return 1.0 / torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
 
 
-def live_supergroups(origins, inv_d, bb_super, t_cap=None):
-    """K1b: per-subtile compacted live-supergroup lists (mesh_pallas
-    ``_live_supergroups``).
+def live_supergroups_plain(origins, inv_d, bb_super, t_cap=None):
+    """K1b in torch ops (mesh_pallas ``_live_supergroups``).
 
     A supergroup is live for a subtile when any of its rays' lines enters
     the supergroup AABB at some t >= 0 and, when ``t_cap`` [R] is given,
@@ -130,6 +152,41 @@ def live_supergroups(origins, inv_d, bb_super, t_cap=None):
     ent, ids = torch.sort(key, dim=1, stable=True)
     cnt = live.sum(1, dtype=torch.int32)
     return ids.to(torch.int32), cnt, ent
+
+
+def live_supergroups(origins, inv_d, bb_super, t_cap=None):
+    """K1b: the function of :func:`live_supergroups_plain`, bit for bit.
+    A CUDA tensor launches ``live_supergroups_kernel`` (one CTA per
+    subtile, counted on this wrapper); a CPU tensor takes the plain
+    version."""
+    if origins.device.type == "cpu":
+        return live_supergroups_plain(origins, inv_d, bb_super, t_cap)
+    r = origins.shape[0]
+    n_super = bb_super.shape[1]
+    for x in (origins, inv_d, bb_super) + (() if t_cap is None else (t_cap,)):
+        if (x.device != origins.device or x.dtype != torch.float32
+                or not x.is_contiguous()):
+            raise ValueError("live_supergroups: want contiguous f32 inputs "
+                             f"on {origins.device}")
+    if r % RT or tuple(inv_d.shape) != (r, 3) or bb_super.shape[0] != 6:
+        raise ValueError("live_supergroups: want [R, 3] rays, R a multiple "
+                         f"of {RT}, and bb_super [6, n_super]")
+    dev = origins.device
+    n_sub = r // RT
+    ids = torch.empty((n_sub, n_super), dtype=torch.int32, device=dev)
+    cnt = torch.empty(n_sub, dtype=torch.int32, device=dev)
+    ent = torch.empty((n_sub, n_super), dtype=torch.float32, device=dev)
+    err = _library().live_supergroups_launch(
+        origins.data_ptr(), inv_d.data_ptr(), bb_super.data_ptr(), n_super,
+        None if t_cap is None else t_cap.data_ptr(), ids.data_ptr(),
+        cnt.data_ptr(), ent.data_ptr(), r,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "live_supergroups")
+    live_supergroups.launches += 1
+    return ids, cnt, ent
+
+
+live_supergroups.launches = 0
 
 
 def _check(o, d, planes, bb, t_init):
@@ -187,33 +244,43 @@ def mesh_nearest(origins, directions, planes, bb, *, t_init=None,
     if origins.device.type != "cuda":
         raise ValueError(f"mesh_nearest runs on cuda or cpu, not "
                          f"{origins.device}")
-    lib = _library()
     d = -directions if reverse else directions
     r = origins.shape[0]
+    dev = origins.device
+    if planes.data_ptr() % 16:
+        raise ValueError("planes must be 16-byte aligned (bulk copies)")
     inv_d = inverse_dirs(d)
-    if t_init is None:
-        cap = torch.full((r,), float("inf"), device=origins.device)
-        ids, cnt, ent = live_supergroups(origins, inv_d, bb[1])
-    else:
-        cap = t_init
-        ids, cnt, ent = live_supergroups(origins, inv_d, bb[1], cap)
-    bb_chunk = bb[0]
-    t = torch.empty(r, dtype=torch.float32, device=origins.device)
-    idx = torch.empty(r, dtype=torch.int32, device=origins.device)
+    cap = (torch.full((r,), float("inf"), device=dev) if t_init is None
+           else t_init)
+    ids, cnt, ent = live_supergroups(origins, inv_d, bb[1], t_init)
+    return _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb[0],
+                 any_hit, "behind" if reverse else (
+                     "any_hit" if any_hit else "nearest"))
+
+
+def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
+          mode, *, slices=None, stage_tris=None, opts=None):
+    """Launches K1 proper on the pre-pass's lists (counted); ``slices``,
+    ``stage_tris`` and ``opts`` default to the main path's choice."""
+    r = origins.shape[0]
+    dev = origins.device
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    idx = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
-    err = lib.mesh_nearest_launch(
+    best = torch.empty(r, dtype=torch.int64, device=dev)   # merge words
+    err = _library().mesh_nearest_launch(
         origins.data_ptr(), d.data_ptr(), inv_d.data_ptr(), cap.data_ptr(),
-        ids.data_ptr(), cnt.data_ptr(), ent.data_ptr(), planes.shape[0],
+        ids.data_ptr(), cnt.data_ptr(), ent.data_ptr(), ids.shape[1],
         bb_chunk.data_ptr(), bb_chunk.shape[1], planes.data_ptr(),
-        t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-        r, int(bool(any_hit)), stream,
+        best.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+        v.data_ptr(), r, int(bool(any_hit)),
+        slices_for(r // RT, stage_tris) if slices is None else slices,
+        STAGE_TRIS if stage_tris is None else stage_tris,
+        KERNEL_OPTS if opts is None else opts,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"mesh_nearest kernel launch failed: CUDA error "
-                           f"{err}")
-    mode = "behind" if reverse else ("any_hit" if any_hit else "nearest")
+    _raise_on(err, "mesh_nearest")
     _wrapper.launches += 1
     _wrapper.launches_by_mode[mode] += 1
     return t, idx, u, v
@@ -228,6 +295,7 @@ _wrapper.launches_by_mode = {"nearest": 0, "any_hit": 0, "behind": 0}
 
 def reset_launches():
     _wrapper.launches = 0
+    live_supergroups.launches = 0
     for k in _wrapper.launches_by_mode:
         _wrapper.launches_by_mode[k] = 0
 
@@ -271,8 +339,12 @@ def mesh_nearest_plain(origins, directions, planes, bb, *, t_init=None,
     packed tables: chunks in index order, each gated per ray by the same
     slab test against the ray's running best t, Moller-Trumbore in the
     kernel's order of operations, lowest index first on ties, the same cap
-    and any-hit semantics. ``count_tests=True`` also returns the number of
-    ray x triangle tests the gates let through."""
+    and any-hit semantics. A chunk whose box is empty (min > max on some
+    axis: the padding past the mesh's end) is never live.
+    ``count_tests=True`` also returns the ray x triangle tests the gates
+    let through, counted per ray, per 32-ray warp and per 256-ray block:
+    ``{"ray": n, "warp": n, "block": n}`` (a warp or block runs all its
+    rays' tests of a chunk once any of them passes)."""
     d = -directions if reverse else directions
     r = origins.shape[0]
     dev = origins.device
@@ -287,8 +359,11 @@ def mesh_nearest_plain(origins, directions, planes, bb, *, t_init=None,
     n_chunks = bb_chunk.shape[1]
     tri = planes.reshape(n_chunks, N_PLANES, CHUNK)
     lo, hi = bb_chunk[:3].T, bb_chunk[3:].T                  # [nc, 3]
-    tests = 0
+    nonempty = (lo <= hi).all(1).tolist()
+    tests = {"ray": 0, "warp": 0, "block": 0}
     for c in range(n_chunks):
+        if not nonempty[c]:
+            continue
         q0 = (lo[c] - origins) * inv_d
         q1 = (hi[c] - origins) * inv_d
         tmin = torch.minimum(q0, q1).amax(-1)
@@ -297,7 +372,10 @@ def mesh_nearest_plain(origins, directions, planes, bb, *, t_init=None,
         rows = live.nonzero()[:, 0]
         if rows.numel() == 0:
             continue
-        tests += rows.numel() * CHUNK
+        if count_tests:
+            tests["ray"] += rows.numel() * CHUNK
+            for key, w in (("warp", 32), ("block", RT)):
+                tests[key] += int(live.reshape(-1, w).any(1).sum()) * w * CHUNK
         ts, us, vs = _mt_chunk(origins[rows], d[rows], tri[c])
         col = ts.argmin(1, keepdim=True)                     # first minimum
         tb = ts.gather(1, col)[:, 0]
@@ -323,8 +401,12 @@ def pack_tri_planes_np(p1, e1, e2, det_eps=None):
 
     Plane k of triangle j of a chunk sits at lane k*CHUNK + j of the
     chunk's row. ``det_eps`` None = plain EPSILON (unit instances).
-    Padding triangles are degenerate with threshold +inf (never a hit);
-    padded chunk/supergroup AABBs are empty (min > max, never live).
+    Padding triangles are degenerate with threshold +inf (never a hit).
+    A chunk of padding only has an empty AABB (min = 3e38 > max = -3e38):
+    the slab test alone reads such a box as all of space, so K1's gate
+    also tests min <= max on each axis. A supergroup box is the union of
+    its chunks' boxes and is empty only if all its chunks are padding,
+    which the packing never produces.
     """
     nt = p1.shape[0]
     pad = -nt % (CHUNK * SG)

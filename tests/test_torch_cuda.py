@@ -8,10 +8,15 @@ machine with a card and without JAX it runs as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its numpy case generators)
 from raytracer_tpu_torch import scenes
 from raytracer_tpu_torch.core.render import render
 from raytracer_tpu_torch.ops import mesh_cuda as MC
@@ -57,6 +62,104 @@ def test_kernel_matches_plain(mode):
     np.testing.assert_allclose(k[0][hit], p[0][hit], rtol=1e-5, atol=1e-8)
     if mode != "any_hit":
         assert (k[1][hit] == p[1][hit]).mean() >= 0.999
+
+
+def _on_card(c):
+    tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
+    cu = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    t0 = c.get("t_init")
+    return ((cu(c["o"]), cu(c["d"]), cu(tri), (cu(bb[0]), cu(bb[1]))),
+            None if t0 is None else cu(t0))
+
+
+def _kernel_vs_plain(args, idx_min=0.999, **kw):
+    before = MC.mesh_nearest.launches, MC.live_supergroups.launches
+    k = [x.cpu().numpy() for x in MC.mesh_nearest(*args, **kw)]
+    torch.cuda.synchronize()
+    assert (MC.mesh_nearest.launches, MC.live_supergroups.launches) == (
+        before[0] + 1, before[1] + 1)
+    p = [x.cpu().numpy() for x in MC.mesh_nearest_plain(*args, **kw)]
+    hit = np.isfinite(p[0])
+    assert (np.isfinite(k[0]) == hit).all()
+    np.testing.assert_allclose(k[0][hit], p[0][hit], rtol=1e-5, atol=1e-8)
+    if kw.get("any_hit"):
+        assert (k[0][hit] == 0.0).all()
+    elif hit.any():
+        assert (k[1][hit] == p[1][hit]).mean() >= idx_min
+    return k, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "any_hit", "behind"])
+@pytest.mark.parametrize("rays", [256, 16384])
+def test_kernel_matches_plain_at_slice_extremes(rays, mode):
+    """256 rays (one subtile: the most slices) and 16,384 rays (a main-path
+    tile), the 3-supergroup stream with mixed caps, all three modes."""
+    _require_cuda()
+    args, cap = _on_card(chip_smoke.stream_case(rays))
+    _, p = _kernel_vs_plain(args, t_init=cap, any_hit=mode == "any_hit",
+                            reverse=mode == "behind")
+    assert np.isfinite(p[0]).sum() > rays // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1024, 512, 256, 128])
+def test_kernel_unit_sizes_and_steps_match_plain(stage):
+    """Every ring stage size the kernel builds, at one slice and at the
+    most slices, with every design step off and on: the same t and index
+    as the plain version, in nearest and any-hit modes."""
+    _require_cuda()
+    (o, d, planes, bb), cap = _on_card(chip_smoke.stream_case(1024))
+    inv = MC.inverse_dirs(d)
+    ids, cnt, ent = MC.live_supergroups(o, inv, bb[1], cap)
+    for any_hit in (False, True):
+        p = MC.mesh_nearest_plain(o, d, planes, bb, t_init=cap,
+                                  any_hit=any_hit)
+        for slices in (1, MC.SG * MC.CHUNK // stage):
+            for opts in (0, MC.KERNEL_OPTS):
+                k = MC._walk(o, d, inv, cap, ids, cnt, ent, planes, bb[0],
+                             any_hit, "any_hit" if any_hit else "nearest",
+                             slices=slices, stage_tris=stage, opts=opts)
+                assert torch.equal(k[0], p[0])
+                if not any_hit:
+                    assert torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+def test_kernel_exact_tie_takes_lowest_index():
+    """One triangle at three indices in three supergroups (two slices):
+    the kernel returns the lowest index on 100% of hits."""
+    _require_cuda()
+    args, _ = _on_card(chip_smoke.tie_case())
+    k, p = _kernel_vs_plain(args, idx_min=1.0)
+    assert np.isfinite(k[0]).all()
+    assert (k[1] == chip_smoke.TIE_INDEX).all()
+
+
+@pytest.mark.cuda
+def test_kernel_any_hit_from_inside_chunk_boxes():
+    """Shadow rays that start on the mesh, inside chunk boxes (slab tmin <
+    0), capped: any-hit verdicts equal the plain version's exactly."""
+    _require_cuda()
+    args, cap = _on_card(chip_smoke.inside_boxes_case())
+    _, p = _kernel_vs_plain(args, t_init=cap, any_hit=True)
+    found = np.isfinite(p[0])
+    assert 0.05 < found.mean() < 0.95
+
+
+@pytest.mark.cuda
+def test_prepass_kernel_equals_torch_version():
+    """K1b's kernel gives exactly live_supergroups_plain's ids, counts and
+    entries, capped and uncapped."""
+    _require_cuda()
+    c = chip_smoke.stream_case(4096)
+    (o, d, _, bb), cap = _on_card(c)
+    inv = MC.inverse_dirs(d)
+    for t_cap in (None, cap):
+        k = MC.live_supergroups(o, inv, bb[1], t_cap)
+        p = MC.live_supergroups_plain(o, inv, bb[1], t_cap)
+        for x, y in zip(k, p):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -10,8 +10,12 @@ Moller-Trumbore in the same order of f32 operations, but XLA may contract
 a multiply-add, which shows as a relative error on t near 0); u and v to
 1e-4 absolute; the triangle index on >= 99.9% of hits (exact t ties between triangles of different chunks may resolve differently,
 since the Pallas kernel visits supergroups by entry distance and the plain
-version in index order), hit existence and any-hit verdicts exactly.
+version in index order; the port's rule is the lowest index, tested
+alone), hit existence and any-hit verdicts exactly.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,6 +24,9 @@ import torch
 
 from raytracer_tpu.ops import mesh_pallas as MP
 from raytracer_tpu_torch.ops import mesh_cuda as MC
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its numpy case generators)
 
 
 def _soup(rng, nt, lo=-3, hi=3, scale=0.5):
@@ -188,6 +195,49 @@ def test_live_supergroups_matches_jax():
         assert 0 < int(p[1].min()) and int(p[1].max()) <= bbs.shape[1]
 
 
+def _plain(c, **kw):
+    tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
+    return MC.mesh_nearest_plain(
+        torch.as_tensor(c["o"]), torch.as_tensor(c["d"]),
+        torch.as_tensor(tri), tuple(torch.as_tensor(x) for x in bb), **kw)
+
+
+def test_padding_chunks_are_never_live():
+    """A last supergroup of 1,664 real triangles and 6 padding chunks (as
+    glass_mesh's): the padding chunks' boxes are empty, and rays aimed away
+    from every real triangle pass no gate at all (before the empty-box
+    test, each padding chunk counted rays x 1024 tests)."""
+    away = chip_smoke.padding_case(through=False)
+    _, (bbc, _) = MC.pack_tri_planes_np(away["p1"], away["e1"], away["e2"])
+    assert bbc.shape[1] == 16
+    assert (bbc[:3, -6:] > bbc[3:, -6:]).all()
+    assert (bbc[:3, :-6] <= bbc[3:, :-6]).all()
+    *_, tests = _plain(away, count_tests=True)
+    assert tests == {"ray": 0, "warp": 0, "block": 0}
+
+
+def test_padding_case_rays_through_match_pallas():
+    c = chip_smoke.padding_case(through=True)
+    jr, pr = _both(c["p1"], c["e1"], c["e2"], c["o"], c["d"])
+    _assert_nearest_agrees(jr, pr, min_hits=100)
+    *_, tests = _plain(c, count_tests=True)
+    assert 0 < tests["ray"] <= tests["warp"] <= tests["block"]
+    assert tests["ray"] <= 256 * 10 * MC.CHUNK
+
+
+def test_exact_tie_lowest_index_wins():
+    """One triangle at three indices in three supergroups: every ray hits
+    all three at the same t, and the plain version returns the lowest
+    index (the rule the kernel's merge word keeps)."""
+    c = chip_smoke.tie_case()
+    t, idx, u, v = _plain(c)
+    assert torch.isfinite(t).all()
+    assert (idx == chip_smoke.TIE_INDEX).all()
+    np.testing.assert_array_equal(t.numpy(), np.float32(5.0))
+    tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
+    assert tri.shape[0] == 3
+
+
 def test_mesh_nearest_cpu_takes_plain_and_counts_no_launch():
     rng = np.random.default_rng(2)
     p1, e1, e2 = _soup(rng, 300)
@@ -195,13 +245,17 @@ def test_mesh_nearest_cpu_takes_plain_and_counts_no_launch():
     tri, bb = MC.pack_tri_planes_np(p1, e1, e2)
     args = (torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tri),
             tuple(torch.as_tensor(x) for x in bb))
-    before = MC.mesh_nearest.launches
+    before = MC.mesh_nearest.launches, MC.live_supergroups.launches
     for kw in ({}, {"any_hit": True}, {"reverse": True}):
         a = MC.mesh_nearest(*args, **kw)
         b = MC.mesh_nearest_plain(*args, **kw)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
-    assert MC.mesh_nearest.launches == before
+    inv = MC.inverse_dirs(args[1])
+    for x, y in zip(MC.live_supergroups(args[0], inv, args[3][1]),
+                    MC.live_supergroups_plain(args[0], inv, args[3][1])):
+        assert torch.equal(x, y)
+    assert (MC.mesh_nearest.launches, MC.live_supergroups.launches) == before
 
 
 def test_mesh_nearest_rejects_bad_inputs():
