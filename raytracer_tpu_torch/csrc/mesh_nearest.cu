@@ -27,14 +27,14 @@
 //
 // 1. Fill the card. The grid is (subtile, slice): S slices per subtile.
 //    The subtile's work is its pre-pass list of live supergroups, front to
-//    back, cut into units of STAGE triangles: (supergroup, chunk, part) in
-//    that order, 8 chunks a supergroup. Slice s takes units s, s + S,
-//    s + 2S, ... The wrapper picks S = min(units per supergroup,
-//    ceil(4096 / subtiles)): with 128-triangle units, S = 64 for a
-//    16,384-ray call (4,096 CTAs of at most 128 tests in a row per thread),
-//    S = 8 for 131,072 rays. Splitting finer than a chunk shortens the
-//    longest serial chain, which sets the call's time (PERF.md has the
-//    measured table of unit sizes and slice counts behind the choice).
+//    back, cut into units of STAGE = 128 triangles: (supergroup, chunk,
+//    part) in that order, 8 chunks a supergroup. Slice s takes units s,
+//    s + S, s + 2S, ... The launcher picks S = min(64 units per
+//    supergroup, ceil(4096 / subtiles)): S = 64 for a 16,384-ray call
+//    (4,096 CTAs of at most 128 tests in a row per thread), S = 8 for
+//    131,072 rays. Splitting finer than a chunk shortens the longest
+//    serial chain, which sets the call's time (PERF.md has the measured
+//    table of unit sizes and slice counts behind the choice).
 //    Slices merge through one 64-bit word per ray, (float bits of t) << 32
 //    | triangle index, reduced with atomicMin: positive floats order as
 //    their bits, so the smallest word is the nearest hit and, on a tie,
@@ -63,9 +63,8 @@
 //    mbarrier): one copy per plane row of the unit (a whole chunk's 10 rows
 //    are 40 KB contiguous and go in one copy). The next live unit's copy is
 //    issued before the current unit's tests, its gate evaluated early with
-//    the best t known then (conservative). The ring is 2 x 5 KB at 128
-//    triangles, under the 48 KB default; the launcher still raises the
-//    dynamic shared-memory limit for the larger units it can build.
+//    the best t known then (conservative). The ring is 2 x 5 KB, under
+//    the 48 KB default, which leaves room for several CTAs per SM.
 // 5. Empty boxes. Padding chunks carry min > max; the gate tests lo <= hi
 //    on each axis, so they are never live. Their triangles never hit
 //    (det_eps = +inf), so only the tests counted drop.
@@ -91,16 +90,11 @@ constexpr int CHUNK = 1024;    // triangles per chunk
 constexpr int SG = 8;          // chunks per supergroup
 constexpr int N_PLANES = 10;   // p1.xyz, e1.xyz, e2.xyz, det_eps
 constexpr int WARPS = RT / 32;
+constexpr int STAGE = 128;     // triangles per unit = per ring stage
+constexpr int PARTS = CHUNK / STAGE;
+constexpr int TARGET_CTAS = 4096;   // slices split a call up to about this
 constexpr float EPSILON = 1e-4f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// opts bits (all set on the main path; cleared one by one to measure the
-// steps above)
-constexpr int OPT_WARP_GATE = 1;   // step 2
-constexpr int OPT_FOUND_EXIT = 2;  // step 3
-constexpr int OPT_PREFETCH = 4;    // step 4: copy overlaps the tests
-constexpr int OPT_EMPTY_BOX = 8;   // step 5
-constexpr int OPT_WARP_SKIP = 16;  // a warp skips a triangle all its rays miss
 
 typedef unsigned long long u64;
 
@@ -152,12 +146,11 @@ struct WalkArgs {
   int n_super;
   int n_chunks;
   int slices;
-  int opts;
 };
 
 // Slab test of chunk ch's box against one ray: its entry distance and
 // whether the line meets the box ahead of the origin (the plain version's
-// gate, without the best-t term).
+// gate, without the best-t term); an empty box is never met (step 5).
 __device__ __forceinline__ bool chunk_slab(const WalkArgs& a, int ch,
                                            float ox, float oy, float oz,
                                            float ix, float iy, float iz,
@@ -172,15 +165,13 @@ __device__ __forceinline__ bool chunk_slab(const WalkArgs& a, int ch,
   tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
   const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)),
                            fmaxf(z0, z1));
-  bool geo = (tmin <= tmax + EPSILON) && (tmax >= 0.0f);
-  if (a.opts & OPT_EMPTY_BOX) geo = geo && lx <= hx && ly <= hy && lz <= hz;
-  return geo;
+  return (tmin <= tmax + EPSILON) && (tmax >= 0.0f) && lx <= hx &&
+         ly <= hy && lz <= hz;
 }
 
-template <int STAGE, bool ANY_HIT>
+template <bool ANY_HIT>
 __global__ void __launch_bounds__(RT)
 mesh_walk_kernel(const WalkArgs a) {
-  constexpr int PARTS = CHUNK / STAGE;
   constexpr uint32_t STAGE_FLOATS = N_PLANES * STAGE;
   extern __shared__ __align__(128) float ring[];   // 2 x [N_PLANES][STAGE]
   __shared__ __align__(8) uint64_t full[2];
@@ -257,12 +248,8 @@ mesh_walk_kernel(const WalkArgs a) {
     const float* src =
         a.planes + (size_t)n.ch * N_PLANES * CHUNK + n.part * STAGE;
     mbar_expect_tx(&full[s], STAGE_FLOATS * 4);
-    if (PARTS == 1) {
-      bulk_g2s(dst, src, STAGE_FLOATS * 4, &full[s]);
-    } else {
-      for (int q = 0; q < N_PLANES; ++q)
-        bulk_g2s(dst + q * STAGE, src + q * CHUNK, STAGE * 4, &full[s]);
-    }
+    for (int q = 0; q < N_PLANES; ++q)
+      bulk_g2s(dst + q * STAGE, src + q * CHUNK, STAGE * 4, &full[s]);
   };
 
   Unit cur = next_live(0);
@@ -274,30 +261,22 @@ mesh_walk_kernel(const WalkArgs a) {
     // the next live unit, its gate evaluated now with the best t known
     // now; its copy lands while this unit is tested
     const Unit nxt = next_live(cur.k + 1);
-    if (nxt.k >= 0) {
-      if (threadIdx.x == 0) issue(nxt, stage ^ 1);
-      if (!(a.opts & OPT_PREFETCH))   // measured ablation: no overlap
-        mbar_wait(&full[stage ^ 1], (phase >> (stage ^ 1)) & 1);
-    }
+    if (nxt.k >= 0 && threadIdx.x == 0) issue(nxt, stage ^ 1);
 
     refresh();
     const bool live = !found && cur.geo && cur.tmin <= best_t();
-    const bool warp_live = (a.opts & OPT_WARP_GATE)
-                               ? __any_sync(FULL, live) : true;
+    const bool warp_live = __any_sync(FULL, live);
     // warp 0 waits on every copy, so none is in flight when the stage is
     // filled again or the CTA exits
     if (warp_live || warp == 0) mbar_wait(&full[stage], (phase >> stage) & 1);
     if (warp_live) {
       const float* tri = ring + stage * STAGE_FLOATS;
       const uint32_t base = (uint32_t)(cur.ch * CHUNK + cur.part * STAGE);
-      const bool skip_u = a.opts & OPT_WARP_SKIP;
       float tb = best_t();
       const bool was_found = found;
       bool improved = false;
       for (int i0 = 0; i0 < STAGE; i0 += 32) {
-        if (ANY_HIT && (a.opts & OPT_FOUND_EXIT) &&
-            __all_sync(FULL, found || !live))
-          break;
+        if (ANY_HIT && __all_sync(FULL, found || !live)) break;
 #pragma unroll 4
         for (int i = i0; i < i0 + 32; ++i) {
           const float p1x = tri[0 * STAGE + i], p1y = tri[1 * STAGE + i],
@@ -321,7 +300,7 @@ mesh_walk_kernel(const WalkArgs a) {
           ok = ok && (u >= 0.0f) && (u <= 1.0f);
           // the rays of a warp are neighbours: most triangles fail the u
           // test for all of them at once
-          if (skip_u && !__any_sync(FULL, live && !found && ok)) continue;
+          if (!__any_sync(FULL, live && !found && ok)) continue;
 
           // qvec = s x e1
           const float qx = sy * e1z - sz * e1y;
@@ -470,19 +449,12 @@ live_supergroups_kernel(const float* __restrict__ o,
   if (threadIdx.x == 0) cnt[sub] = n_live;
 }
 
-template <int STAGE, bool ANY_HIT>
-cudaError_t launch_walk(const WalkArgs& a, int n_sub, cudaStream_t stream) {
-  const int smem = 2 * N_PLANES * STAGE * (int)sizeof(float);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mesh_walk_kernel<STAGE, ANY_HIT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  mesh_walk_kernel<STAGE, ANY_HIT><<<n_sub * a.slices, RT, smem, stream>>>(a);
-  return cudaGetLastError();
+// Slices per subtile: enough CTAs to fill the card (about TARGET_CTAS, 4 or
+// more per SM), at most one slice per unit of a supergroup.
+int walk_slices(int n_sub) {
+  if (n_sub < 1) return 1;
+  const int s = (TARGET_CTAS + n_sub - 1) / n_sub;
+  return s < 1 ? 1 : (s > SG * PARTS ? SG * PARTS : s);
 }
 
 }  // namespace
@@ -491,37 +463,32 @@ cudaError_t launch_walk(const WalkArgs& a, int n_sub, cudaStream_t stream) {
 // 256; every pointer is device memory; launches go on `stream`. Each
 // returns the first CUDA error of its launches (0 when all were accepted).
 
+// K1's slices per subtile for a call of n_rays rays.
+extern "C" int mesh_nearest_slices(int n_rays) {
+  return walk_slices(n_rays / RT);
+}
+
 // K1: presets the merge words, walks (subtile, slice) CTAs, unpacks.
-// stage_tris (1024, 512, 256 or 128) is the triangles per ring stage, the
-// unit a slice takes.
 extern "C" int mesh_nearest_launch(
     const float* o, const float* d, const float* inv_d, const float* cap,
     const int32_t* ids, const int32_t* cnt, const float* ent, int n_super,
     const float* bb_chunk, int n_chunks, const float* planes, u64* best,
     float* t_out, int32_t* idx_out, float* u_out, float* v_out, int n_rays,
-    int any_hit, int slices, int stage_tris, int opts, void* stream) {
+    int any_hit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_sub = n_rays / RT;
   if (n_sub == 0) return 0;
-  if (slices < 1 || (stage_tris != 128 && stage_tris != 256 &&
-                     stage_tris != 512 && stage_tris != 1024))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(best, 0xff, sizeof(u64) * n_rays, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const WalkArgs a{o, d, inv_d, cap, ids, cnt, ent, bb_chunk, planes, best,
-                   n_super, n_chunks, slices, opts};
-  if (stage_tris == 1024)
-    e = any_hit ? launch_walk<1024, true>(a, n_sub, st)
-                : launch_walk<1024, false>(a, n_sub, st);
-  else if (stage_tris == 512)
-    e = any_hit ? launch_walk<512, true>(a, n_sub, st)
-                : launch_walk<512, false>(a, n_sub, st);
-  else if (stage_tris == 256)
-    e = any_hit ? launch_walk<256, true>(a, n_sub, st)
-                : launch_walk<256, false>(a, n_sub, st);
+                   n_super, n_chunks, walk_slices(n_sub)};
+  const int grid = n_sub * a.slices;
+  const int smem = 2 * N_PLANES * STAGE * (int)sizeof(float);
+  if (any_hit)
+    mesh_walk_kernel<true><<<grid, RT, smem, st>>>(a);
   else
-    e = any_hit ? launch_walk<128, true>(a, n_sub, st)
-                : launch_walk<128, false>(a, n_sub, st);
+    mesh_walk_kernel<false><<<grid, RT, smem, st>>>(a);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   mesh_finish_kernel<<<(n_rays + RT - 1) / RT, RT, 0, st>>>(
       best, o, d, cap, planes, t_out, idx_out, u_out, v_out, n_rays, any_hit);

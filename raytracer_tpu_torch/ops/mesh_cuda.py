@@ -36,12 +36,6 @@ RT = 256           # rays per subtile = threads per CTA (one 16x16 block)
 CHUNK = 1024       # triangles per chunk (the unit of the gate)
 N_PLANES = 10      # p1.xyz, e1.xyz, e2.xyz, det_eps (per-tri MT threshold)
 SG = 8             # chunks per supergroup (the pre-pass granularity)
-TARGET_CTAS = 4096  # K1 splits subtiles until a call launches about this many
-STAGE_TRIS = 128   # triangles per ring stage = per unit of a slice
-# csrc/mesh_nearest.cu's opts bits, all on: per-warp gate, any-hit exit,
-# copy/test overlap, empty-box gate, per-warp triangle skip (cleared only
-# to measure each step)
-KERNEL_OPTS = 0x1F
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "mesh_nearest.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -97,8 +91,9 @@ def _library():
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.mesh_nearest_launch.argtypes = [
-                p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, i, i, i,
-                p]
+                p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, p]
+            lib.mesh_nearest_slices.argtypes = [i]
+            lib.mesh_nearest_slices.restype = ctypes.c_int
             lib.live_supergroups_launch.argtypes = [p, p, p, i, p, p, p, p, i,
                                                     p]
             lib.mesh_nearest_launch.restype = ctypes.c_int
@@ -112,11 +107,10 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def slices_for(n_sub: int, stage_tris: int | None = None) -> int:
-    """K1's slices per subtile: enough CTAs to fill the card (about
-    TARGET_CTAS), at most one slice per unit (stage) of a supergroup."""
-    units = SG * CHUNK // (stage_tris or STAGE_TRIS)
-    return max(1, min(units, -(-TARGET_CTAS // max(n_sub, 1))))
+def walk_slices(n_rays: int) -> int:
+    """Slices per subtile that K1's launcher picks for a call of
+    ``n_rays`` rays (it launches n_rays / RT times as many CTAs)."""
+    return _library().mesh_nearest_slices(n_rays)
 
 
 def inverse_dirs(d):
@@ -259,9 +253,8 @@ def mesh_nearest(origins, directions, planes, bb, *, t_init=None,
 
 
 def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
-          mode, *, slices=None, stage_tris=None, opts=None):
-    """Launches K1 proper on the pre-pass's lists (counted); ``slices``,
-    ``stage_tris`` and ``opts`` default to the main path's choice."""
+          mode):
+    """Launches K1 proper on the pre-pass's lists (counted)."""
     r = origins.shape[0]
     dev = origins.device
     t = torch.empty(r, dtype=torch.float32, device=dev)
@@ -275,9 +268,6 @@ def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
         bb_chunk.data_ptr(), bb_chunk.shape[1], planes.data_ptr(),
         best.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
         v.data_ptr(), r, int(bool(any_hit)),
-        slices_for(r // RT, stage_tris) if slices is None else slices,
-        STAGE_TRIS if stage_tris is None else stage_tris,
-        KERNEL_OPTS if opts is None else opts,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "mesh_nearest")

@@ -14,19 +14,14 @@ version in index order; the port's rule is the lowest index, tested
 alone), hit existence and any-hit verdicts exactly.
 """
 
-import sys
-from pathlib import Path
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from raytracer_tpu.ops import mesh_pallas as MP
+from raytracer_tpu_torch import mesh_cases
 from raytracer_tpu_torch.ops import mesh_cuda as MC
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  (its numpy case generators)
 
 
 def _soup(rng, nt, lo=-3, hi=3, scale=0.5):
@@ -207,7 +202,7 @@ def test_padding_chunks_are_never_live():
     glass_mesh's): the padding chunks' boxes are empty, and rays aimed away
     from every real triangle pass no gate at all (before the empty-box
     test, each padding chunk counted rays x 1024 tests)."""
-    away = chip_smoke.padding_case(through=False)
+    away = mesh_cases.padding_case(through=False)
     _, (bbc, _) = MC.pack_tri_planes_np(away["p1"], away["e1"], away["e2"])
     assert bbc.shape[1] == 16
     assert (bbc[:3, -6:] > bbc[3:, -6:]).all()
@@ -217,7 +212,7 @@ def test_padding_chunks_are_never_live():
 
 
 def test_padding_case_rays_through_match_pallas():
-    c = chip_smoke.padding_case(through=True)
+    c = mesh_cases.padding_case(through=True)
     jr, pr = _both(c["p1"], c["e1"], c["e2"], c["o"], c["d"])
     _assert_nearest_agrees(jr, pr, min_hits=100)
     *_, tests = _plain(c, count_tests=True)
@@ -229,10 +224,10 @@ def test_exact_tie_lowest_index_wins():
     """One triangle at three indices in three supergroups: every ray hits
     all three at the same t, and the plain version returns the lowest
     index (the rule the kernel's merge word keeps)."""
-    c = chip_smoke.tie_case()
+    c = mesh_cases.tie_case()
     t, idx, u, v = _plain(c)
     assert torch.isfinite(t).all()
-    assert (idx == chip_smoke.TIE_INDEX).all()
+    assert (idx == mesh_cases.TIE_INDEX).all()
     np.testing.assert_array_equal(t.numpy(), np.float32(5.0))
     tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
     assert tri.shape[0] == 3
