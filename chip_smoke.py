@@ -35,9 +35,27 @@ Phases (any failure exits non-zero before the final line):
    version), the bound and its share, the plain version's time. Then one
    dragons frame under torch.profiler (device busy and idle share, top
    kernels).
+6. the CLI path (launch counters zeroed again just before its frames):
+   ``python3 -m raytracer_tpu_torch --scene benchmarks/dragons_equiv.yaml
+   --obj teapot.obj`` once as a subprocess (teapot.obj written by
+   scenes.write_obj: the generated mesh), which must give a 1200x480 PPM;
+   then in process, parse_scene (YAML + OBJ + build) timed once and the
+   frames timed as in phase 5 for three YAML scenes: cli_dragons (held
+   against phase 5's dragons frame, <= 0.5% of pixels more than one step
+   apart), cli_csg_area_light (scenes.CSG_AREA_YAML: CSG x a 10x10 area
+   light, 640x360) and cli_soft_glass (scenes.SOFT_GLASS_YAML: 353,920
+   glass triangles under a 10x10 area light, 640x360). Then every K1 call
+   of one soft_glass tile; its widest any-hit call (tile x 100 samples)
+   launched whole, its outputs held against the plain version in
+   65,536-ray blocks (every block), its pre-pass against the torch
+   version, and the call timed. Then a --ppm + --dithering bayer4 earth
+   scene through main(),
+   and the two area-light scenes cut small on cuda against the CPU in
+   deterministic jitter mode.
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object with the kernels' numbers, and the device JSON object.
+one JSON object with the kernels' numbers (launches: phases 5 and 6), and
+the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
 """
@@ -58,6 +76,7 @@ HERE = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 MT_FLOPS = 50          # f32 operations of one ray x triangle test (about)
+PLAIN_BLOCK = 65536    # rays per block of the plain version in k1_numbers
 
 
 def log(*a):
@@ -133,15 +152,24 @@ def check_kernel_vs_plain(mc, call, label, idx_min=0.999):
     """K1 against its plain version on one call's inputs (and the pre-pass
     kernel against its torch version); returns (the max |t_kernel -
     t_plain| over hits, check_prepass's number)."""
-    import numpy as np
-    import torch
-
     pre_err = check_prepass(mc, call, label)
+    k = [x.cpu().numpy() for x in mc.mesh_nearest(
+        call["o"], call["d"], call["planes"], call["bb"],
+        t_init=call["t_init"], any_hit=call["any_hit"],
+        reverse=call["reverse"])]
+    return compare_to_plain(mc, call, k, label, idx_min), pre_err
+
+
+def compare_to_plain(mc, call, k, label, idx_min=0.999):
+    """K1's outputs ``k`` (numpy t, idx, u, v) for a call's rays against
+    the plain version on the same inputs: hit existence and any-hit verdicts
+    exact, t to rtol 1e-5, triangle index on >= idx_min of hits. Returns
+    the max |t_kernel - t_plain| over hits."""
+    import numpy as np
+
     args = (call["o"], call["d"], call["planes"], call["bb"])
     kw = dict(t_init=call["t_init"], any_hit=call["any_hit"],
               reverse=call["reverse"])
-    k = [x.cpu().numpy() for x in mc.mesh_nearest(*args, **kw)]
-    torch.cuda.synchronize()
     p = [x.cpu().numpy() for x in mc.mesh_nearest_plain(*args, **kw)]
     hit = np.isfinite(p[0])
     if not (np.isfinite(k[0]) == hit).all():
@@ -161,7 +189,7 @@ def check_kernel_vs_plain(mc, call, label, idx_min=0.999):
                                  f"{idx_ok:.4%} of hits")
     log(f"  {label:<34} mode={mode_of(call):<8} rays={call['o'].shape[0]:>6}"
         f" hits={int(hit.sum()):>6} max|dt|={err:.3g} idx_agree={idx_ok:.5f}")
-    return err, pre_err
+    return err
 
 
 def soup_cases(mc, dev):
@@ -361,13 +389,27 @@ def k1_numbers(mc, call, reps):
     n_sub = r // mc.RT
     res["slices"] = mc.walk_slices(r)
     res["ctas"] = n_sub * res["slices"]
-    res["plain_ms"] = cuda_ms(lambda: mc.mesh_nearest_plain(*args, **kw), 1)
-    *_, tests = mc.mesh_nearest_plain(*args, **kw, count_tests=True)
+    # the plain version in blocks of at most PLAIN_BLOCK rays (its
+    # [rays, CHUNK] tables would not fit at a million rays); its time and
+    # its gated test counts are the blocks' sums
+    res["plain_ms"] = 0.0
+    tests = {"ray": 0, "warp": 0, "block": 0}
+    for b0 in range(0, r, PLAIN_BLOCK):
+        sl = slice(b0, b0 + PLAIN_BLOCK)
+        bargs = (o[sl], call["d"][sl], planes, call["bb"])
+        bkw = dict(kw, t_init=None if call["t_init"] is None
+                   else call["t_init"][sl])
+        res["plain_ms"] += cuda_ms(
+            lambda: mc.mesh_nearest_plain(*bargs, **bkw), 1)
+        *_, bt = mc.mesh_nearest_plain(*bargs, **bkw, count_tests=True)
+        for k in tests:
+            tests[k] += bt[k]
     # bytes: the planes of every supergroup live for some subtile, read
     # once, plus the rays (o, d, cap) and the outputs (t, idx, u, v)
+    listed = (torch.arange(ids.shape[1], device=ids.device)[None]
+              < cnt[:, None])
     live = torch.zeros(ids.shape[1], dtype=torch.bool, device=ids.device)
-    for b in range(ids.shape[0]):
-        live[ids[b, : int(cnt[b])].long()] = True
+    live[ids[listed].long()] = True
     n_live = int(live.sum())
     plane_bytes = n_live * mc.SG * mc.N_PLANES * mc.CHUNK * 4
     nbytes = plane_bytes + r * (24 + 4) + r * 16
@@ -391,7 +433,8 @@ def k1_numbers(mc, call, reps):
 
 
 def frame(scene, cam, label, out_dir, mc):
-    """Warm-up + median of 3 frames of render(); returns numbers."""
+    """Warm-up + median of 3 frames of render(); returns (numbers, the
+    last u8 frame)."""
     import numpy as np
     import torch
 
@@ -422,7 +465,228 @@ def frame(scene, cam, label, out_dir, mc):
                resolution=f"{cam.hsize}x{cam.vsize}",
                mean_u8=float(img.mean()))
     log(f"  {label}: {json.dumps(res)}")
-    return res
+    return res, img
+
+# the earth scene of tests/test_texture_scenes.py, at 160x100
+EARTH_SCENE = """
+- add: camera
+  width: 160
+  height: 100
+  field-of-view: 0.8
+  from: [1, 2, -10]
+  to: [0, 1.1, 0]
+  up: [0, 1, 0]
+- add: point-light
+  at: [-100, 100, -100]
+  intensity: [1, 1, 1]
+- add: plane
+  material:
+    color: [1, 1, 1]
+    diffuse: 0.1
+    specular: 0
+    ambient: 0
+    reflective: 0.4
+- add: sphere
+  transform:
+    - [ rotate-y, 1.9 ]
+    - [ translate, 0, 1.1, 0 ]
+  material:
+    pattern:
+      kind: texture-map
+      uv-mapping: spherical
+      uv-pattern:
+        kind: image
+        ppm: earthmap.ppm
+    diffuse: 0.9
+    specular: 0.1
+    shininess: 10
+    ambient: 0.1
+"""
+
+
+def u8_diff(a, b, label, budget=0.005):
+    """Pixels of two u8 frames more than one step apart; fails above the
+    budget (a share of the pixels)."""
+    import numpy as np
+
+    diff = np.abs(a.astype(int) - b.astype(int)).max(-1)
+    out = dict(differ=int((diff > 0).sum()), over_1_step=int((diff > 1).sum()),
+               share_over_1_step=float((diff > 1).mean()),
+               max_step=int(diff.max()))
+    log(f"  {label}: {json.dumps(out)}")
+    if out["share_over_1_step"] > budget:
+        raise AssertionError(f"{label}: {out['share_over_1_step']:.4%} of "
+                             f"pixels more than one step apart")
+    return out
+
+
+def same_tables(a, b):
+    """Whether two scenes hold equal tables and static facts."""
+    import torch
+
+    from raytracer_tpu_torch.core.types import ARRAY_FIELDS
+
+    if a.static != b.static:
+        return False
+    for k in ARRAY_FIELDS:
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (x is not None and (
+                x.shape != y.shape or not torch.equal(x, y))):
+            return False
+    return True
+
+
+def cli_phase(mc, dev, out_dir, dragons, dragons_img):
+    """Phase 6, the CLI path. Returns its numbers, its main-path launch
+    counts and its largest kernel-vs-plain differences."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import native, scenes
+    from raytracer_tpu_torch.__main__ import main as cli_main
+    from raytracer_tpu_torch.canvas import from_ppm_bytes
+    from raytracer_tpu_torch.core.render import render
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    log("[6] the CLI path")
+    if not native.available():
+        raise AssertionError("native I/O library unavailable: "
+                             f"{native.unavailable_reason()}")
+    teapot = out_dir / "teapot.obj"
+    p, n, _ = scenes.revolved_mesh()
+    scenes.write_obj(teapot, p, n)
+    dragons_yaml = HERE / "benchmarks" / "dragons_equiv.yaml"
+    cli_ppm = out_dir / "cli_dragons.ppm"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch", "--scene",
+         str(dragons_yaml), "--obj", str(teapot), "--out", str(cli_ppm)],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    cli_img = from_ppm_bytes(cli_ppm.read_bytes())
+    log(f"  CLI subprocess: rc 0, {cli_img.shape[1]}x{cli_img.shape[0]} "
+        f"PPM, {cli_s:.1f} s (process start, build, parse, one frame, P3 "
+        f"write)")
+
+    sources = {
+        "cli_dragons": (dragons_yaml.read_text(), [teapot]),
+        "cli_csg_area_light": (scenes.CSG_AREA_YAML, []),
+        "cli_soft_glass": (scenes.SOFT_GLASS_YAML, [teapot]),
+    }
+    mc.reset_launches()
+    results, parsed, imgs = {}, {}, {}
+    for label, (text, objs) in sources.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cam, scene = parse_scene(text, obj_files=[str(o) for o in objs],
+                                 device=dev)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+        results[label], imgs[label] = frame(scene, cam, label, out_dir, mc)
+        results[label]["parse_build_s"] = parse_s
+        parsed[label] = (cam, scene)
+    launches = mc.mesh_nearest.launches
+    by_mode = dict(mc.mesh_nearest.launches_by_mode)
+    pre_launches = mc.live_supergroups.launches
+    log(f"  K1 launches on the CLI path: {launches} {by_mode}; K1b "
+        f"launches: {pre_launches}")
+    if results["cli_soft_glass"]["k1_launches_per_frame"]["any_hit"] == 0:
+        raise AssertionError("soft_glass launched no any-hit K1 call")
+
+    cam = parsed["cli_dragons"][0]
+    if cli_img.shape != (cam.vsize, cam.hsize, 3):     # 1200x480
+        raise AssertionError(f"CLI frame shape {cli_img.shape}")
+    out = {"cli_subprocess_s": cli_s}
+    out["cli_dragons_vs_phase5"] = u8_diff(
+        imgs["cli_dragons"], dragons_img, "cli_dragons vs phase 5 dragons")
+    out["cli_dragons_vs_subprocess"] = u8_diff(
+        imgs["cli_dragons"],
+        np.floor(cli_img * 255.0 + 0.5).astype(np.uint8),
+        "cli_dragons in process vs the CLI subprocess")
+    out["cli_dragons_tables_equal_phase5"] = same_tables(
+        parsed["cli_dragons"][1], dragons)
+    log(f"  cli_dragons tables equal phase 5's: "
+        f"{out['cli_dragons_tables_equal_phase5']}")
+
+    # the widest K1 call of each frame, and soft_glass's any-hit call
+    max_err = pre_err = 0.0
+    timing = {}
+    for label, (cam, scene) in parsed.items():
+        calls = record_tile(scene, cam)
+        results[label]["widest_k1_rays"] = max(
+            (c["o"].shape[0] for c in calls), default=0)
+        if label != "cli_soft_glass":
+            continue
+        wide = max((c for c in calls if c["any_hit"]),
+                   key=lambda c: c["o"].shape[0])
+        # the whole call at its own launch shape (S slices per subtile over
+        # every subtile), held against the plain version block by block
+        r = wide["o"].shape[0]
+        pre_err = max(pre_err, check_prepass(mc, wide, "soft_glass area"))
+        k = [x.cpu().numpy() for x in mc.mesh_nearest(
+            wide["o"], wide["d"], wide["planes"], wide["bb"],
+            t_init=wide["t_init"], any_hit=True, reverse=wide["reverse"])]
+        log(f"  soft_glass any-hit area call: {r} rays, "
+            f"{r // mc.RT * mc.walk_slices(r)} CTAs at S = "
+            f"{mc.walk_slices(r)}; against plain in {PLAIN_BLOCK}-ray blocks")
+        for b0 in range(0, r, PLAIN_BLOCK):
+            sl = slice(b0, b0 + PLAIN_BLOCK)
+            cut = dict(wide, o=wide["o"][sl], d=wide["d"][sl],
+                       t_init=None if wide["t_init"] is None
+                       else wide["t_init"][sl])
+            e = compare_to_plain(mc, cut, [x[sl] for x in k],
+                                 f"soft_glass area, rays {b0}+")
+            max_err = max(max_err, e)
+        torch.cuda.reset_peak_memory_stats()
+        timing["soft_glass:any_hit_area"] = k1_numbers(mc, wide, reps=3)
+        timing["soft_glass:any_hit_area"]["max_memory_allocated"] = (
+            torch.cuda.max_memory_allocated())
+        log(f"  K1 soft_glass any-hit (area light): "
+            f"{json.dumps(timing['soft_glass:any_hit_area'])}")
+
+    for label in parsed:
+        r = results[label]
+        log(f"  {label}: {r['s_per_frame']:.4f} s/frame, parse + build "
+            f"{r['parse_build_s']:.4f} s, K1 per frame "
+            f"{r['k1_launches_per_frame']}, widest K1 call "
+            f"{r['widest_k1_rays']} rays, peak {r['max_memory_allocated']} B")
+
+    # --ppm + --dithering through main()
+    tex = np.zeros((16, 32, 3), np.uint8)
+    tex[:, :] = (20, 60, 200)
+    tex[6:10, :] = (30, 180, 40)
+    (out_dir / "earthmap.ppm").write_text(
+        "P3\n32 16\n255\n" + " ".join(map(str, tex.reshape(-1))) + "\n")
+    (out_dir / "earth.yaml").write_text(EARTH_SCENE)
+    rc = cli_main(["--scene", str(out_dir / "earth.yaml"), "--ppm",
+                   str(out_dir / "earthmap.ppm"), "--dithering", "bayer4",
+                   "--out", str(out_dir / "cli_earth_bayer4.ppm")])
+    earth = from_ppm_bytes((out_dir / "cli_earth_bayer4.ppm").read_bytes())
+    if rc != 0 or earth.shape != (100, 160, 3) \
+            or not set(np.unique(earth)) <= {0.0, 1.0} or earth.max() != 1.0:
+        raise AssertionError(f"earth --ppm --dithering: rc {rc}, "
+                             f"{earth.shape}, values {np.unique(earth)}")
+    log(f"  earth --ppm --dithering bayer4 160x100: rc 0, black/white, "
+        f"{float(earth.mean()):.4f} white")
+
+    # device vs host, deterministic jitter, small
+    for label, text, objs in (
+            ("csg_area_light", scenes.csg_area_yaml(96, 54), []),
+            ("soft_glass(4)", scenes.soft_glass_yaml(4, 96, 54),
+             [str(teapot)])):
+        frames = []
+        for where in (dev, "cpu"):
+            cam, scene = parse_scene(text, obj_files=objs, jitter=(0.5,),
+                                     device=where)
+            frames.append(render(scene, cam, quantize=True))
+        out[f"{label}_cuda_vs_cpu"] = u8_diff(
+            *frames, f"{label} 96x54 cuda vs cpu (jitter 0.5)")
+    return dict(frames=results, checks=out, launches=launches,
+                by_mode=by_mode, pre_launches=pre_launches, timing=timing,
+                max_err=max_err, pre_err=pre_err)
 
 
 def main(argv=None):
@@ -532,12 +796,12 @@ def main(argv=None):
     log("[5] full-width frames (K1 launch counters zeroed)")
     MC.reset_launches()
     f_items, f_cam = scenes.flagship()
-    results = {
-        "dragons_equiv": frame(dragons, d_cam, "dragons_equiv", out_dir, MC),
-        "glass_mesh": frame(glass, g_cam, "glass_mesh", out_dir, MC),
-        "flagship": frame(build_scene(f_items, device=dev), f_cam,
-                          "flagship", out_dir, MC),
-    }
+    results = {}
+    results["dragons_equiv"], dragons_img = frame(
+        dragons, d_cam, "dragons_equiv", out_dir, MC)
+    results["glass_mesh"], _ = frame(glass, g_cam, "glass_mesh", out_dir, MC)
+    results["flagship"], _ = frame(build_scene(f_items, device=dev), f_cam,
+                                   "flagship", out_dir, MC)
     launches = MC.mesh_nearest.launches
     by_mode = dict(MC.mesh_nearest.launches_by_mode)
     pre_launches = MC.live_supergroups.launches
@@ -562,6 +826,16 @@ def main(argv=None):
     prof = profile_frame(dragons, d_cam,
                          results["dragons_equiv"]["s_per_frame"])
     log(f"  dragons_equiv frame under torch.profiler: {json.dumps(prof)}")
+
+    # -- 6. the CLI path ----------------------------------------------------
+    cli = cli_phase(MC, dev, out_dir, dragons, dragons_img)
+    results.update(cli["frames"])
+    timing.update(cli["timing"])
+    launches += cli["launches"]
+    pre_launches += cli["pre_launches"]
+    by_mode = {k: by_mode[k] + cli["by_mode"][k] for k in by_mode}
+    max_err, pre_err = max(max_err, cli["max_err"]), max(pre_err,
+                                                         cli["pre_err"])
     main_k1 = timing["dragons:nearest"]
     kernels = [{
         "name": "mesh_nearest",
@@ -591,7 +865,8 @@ def main(argv=None):
         "library_ms": None,
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
-                   dragons_profile=prof, seconds=time.perf_counter() - t_start)
+                   dragons_profile=prof, cli_checks=cli["checks"],
+                   seconds=time.perf_counter() - t_start)
     (out_dir / "numbers.json").write_text(json.dumps(summary, indent=1))
     log(f"total {summary['seconds']:.1f} s")
 

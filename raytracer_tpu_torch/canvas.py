@@ -1,10 +1,12 @@
 """Canvas: float32 image buffer with PPM encode/decode and Bayer dithering.
 
-Numpy counterpart of ``raytracer_tpu/canvas.py`` without its native
-encoder: the bytes it writes are identical. The encode path reproduces the
-reference's quantization (canvas.rs:57-84): clamp to [0,1], multiply by 255
-and round half-away-from-zero to u8, written as ASCII (P3) with maxval 255.
-Decoding normalizes samples by the header maxval (canvas.rs:86-107).
+Counterpart of ``raytracer_tpu/canvas.py``: the bytes it writes are
+identical. The encode path reproduces the reference's quantization
+(canvas.rs:57-84): clamp to [0,1], multiply by 255 and round
+half-away-from-zero to u8, written as ASCII (P3) with maxval 255. Decoding
+normalizes samples by the header maxval (canvas.rs:86-107). The ASCII
+codec runs through the native library (:mod:`raytracer_tpu_torch.native`)
+when it builds, else through the numpy code here, its plain version.
 
 Dithering reproduces src/effects/dithering.rs:12-37 + canvas.rs:37-55:
 recursive Bayer matrix construction indexed ``bayer[x % N][y % N]`` with x
@@ -45,10 +47,16 @@ def quantize_u8(pixels: np.ndarray) -> np.ndarray:
 def to_ppm_bytes(pixels: np.ndarray) -> bytes:
     """ASCII P3 PPM, maxval 255. ``pixels`` is [h, w, 3] float32, or u8
     already quantized (``render(..., quantize=True)``)."""
+    from raytracer_tpu_torch import native
+
     h, w = pixels.shape[:2]
     q = pixels if pixels.dtype == np.uint8 else quantize_u8(pixels)
     q = q.reshape(-1)
     header = f"P3\n{w} {h}\n255\n".encode()
+    body = native.ppm_encode_body(q)
+    if body is not None:
+        out = header + body
+        return out if out.endswith(b"\n") else out + b"\n"
     text = "\n".join(
         " ".join(chunk) for chunk in _chunked(q.astype(str), 15)
     )
@@ -73,6 +81,18 @@ def from_ppm_bytes(data: bytes) -> np.ndarray:
         return _parse_p6(data)
     if data[:2] != b"P3":
         raise ValueError("Not a P3/P6 PPM file")
+    # the native integer scanner skips whitespace and '#' comments, not
+    # the 'P3' magic
+    from raytracer_tpu_torch import native
+
+    head = native.ppm_decode_samples(data[2:], 3)
+    if head is not None and len(head) == 3:
+        w, h, maxval = (int(x) for x in head)
+        vals = native.ppm_decode_samples(data[2:], 3 + w * h * 3)
+        samples = vals[3:].astype(np.float32)
+        if samples.size != w * h * 3:
+            raise ValueError("Truncated PPM body")
+        return (samples / float(maxval)).reshape(h, w, 3)
     tokens = _ppm_tokens(data)
     w, h, maxval = int(tokens[1]), int(tokens[2]), int(tokens[3])
     samples = np.array(tokens[4 : 4 + w * h * 3], dtype=np.float32)

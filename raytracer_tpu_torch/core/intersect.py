@@ -1,13 +1,16 @@
 """Batched ray-primitive intersection.
 
-Counterpart of ``raytracer_tpu/core/intersect.py`` without CSG. A whole ray
-batch meets each primitive FAMILY at once:
+Counterpart of ``raytracer_tpu/core/intersect.py``. A whole ray batch
+meets each primitive FAMILY at once:
 
 * quadric families (sphere/plane/cube/cylinder/cone) move the batch into
   every primitive's object space, then run the family's closed-form solve
   elementwise. The 3x3 products are written out as sums of elementwise
   products (no matmul), so they round the same on every device and no
   TF32 path can touch them;
+* CSG triangles get dense columns (the CSG filter needs every hit), and
+  the CSG filter (:mod:`raytracer_tpu_torch.core.csg`) runs on the static
+  columns;
 * free triangles are world-space tables packed for the mesh kernel: every
   free-mesh query (nearest, any-hit shadow, nearest-behind) is one
   :func:`raytracer_tpu_torch.ops.mesh_cuda.mesh_nearest` call — the CUDA
@@ -26,6 +29,7 @@ import torch
 
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.core.csg import apply_csg
 from raytracer_tpu_torch.ops import mesh_cuda as MC
 
 INF = float("inf")
@@ -236,16 +240,10 @@ def _tri_moller_trumbore(o, d, p1, e1, e2, det_eps=None):
     return torch.where(ok, t, INF), u, v
 
 
-def _require_no_csg(scene: T.Scene):
-    if scene.static.csg_nodes:
-        raise NotImplementedError(
-            "CSG scenes are not ported to raytracer_tpu_torch yet")
-
-
 def _static_hits(scene: T.Scene, origins, directions):
-    """Candidate intersections of the quadric families (fixed slots per
-    primitive). Returns (ts, gid, u, v) each [R, Cs]."""
-    _require_no_csg(scene)
+    """Candidate intersections of the statically laid-out region: quadric
+    families (fixed slots per primitive), then dense CSG triangles, with
+    the CSG filter applied. Returns (ts, gid, u, v) each [R, Cs]."""
     st = scene.static
     ns, npl, ncu, ncy, nco, _ = st.counts
     off = st.offsets
@@ -273,15 +271,35 @@ def _static_hits(scene: T.Scene, origins, directions):
     fam("cone", nco, _cone_ts, 4,
         extra=(scene.cone_min[None], scene.cone_max[None], scene.cone_closed[None]))
 
+    # CSG triangles: dense columns, after the quadric families
+    ntc = st.n_csg_tris
+    tri_uv = None
+    if ntc:
+        tts, tu, tv = _tri_moller_trumbore(
+            origins, directions, scene.tri_p1[:ntc], scene.tri_e1[:ntc],
+            scene.tri_e2[:ntc], det_eps=scene.tri_det_eps[:ntc])
+        tri_off = sum(st.counts[:5])
+        ts_list.append(tts)
+        gid_cols.append(np.arange(tri_off, tri_off + ntc, dtype=np.int32))
+        tri_uv = (tu, tv)
+
     if ts_list:
         ts = torch.cat(ts_list, -1)
         static_gids = np.concatenate(gid_cols)
     else:
         ts = torch.full((r, 1), INF, device=dev)
         static_gids = np.zeros(1, np.int32)
+    c_static = ts.shape[-1]
     gid = torch.as_tensor(static_gids, device=dev)[None, :].expand(r, -1)
     u = torch.zeros_like(ts)
     v = torch.zeros_like(ts)
+    if tri_uv is not None:
+        pad = torch.zeros((r, c_static - ntc), device=dev)
+        u = torch.cat([pad, tri_uv[0]], -1)
+        v = torch.cat([pad, tri_uv[1]], -1)
+
+    if st.csg_nodes:
+        ts = apply_csg(scene, ts, static_gids, c_static)
     return ts, gid, u, v
 
 
@@ -457,7 +475,6 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
     result is discarded: their direction is parked to +z and their mesh
     cap is 0, so the kernel's gates reject them.
     """
-    _require_no_csg(scene)
     st = scene.static
     v = pos - over[:, None]                                 # [R,S,3]
     dist = torch.clamp_min(torch.sqrt(dot3(v, v)), 1e-12)   # [R,S]
@@ -469,6 +486,27 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
             torch.tensor([0.0, 0.0, 1.0], device=over.device))
 
     ts, col_gid = _shadow_static_ts(scene, over, direction)
+    if st.csg_nodes:
+        ntc = st.n_csg_tris
+        if ntc:
+            # CSG triangles need dense columns (the parity filter must see
+            # every hit); world-space vertices, so the sample axis is
+            # flattened just here
+            flat_o = over[:, None].expand(r, s, 3).reshape(-1, 3)
+            tts, _, _ = _tri_moller_trumbore(
+                flat_o, direction.reshape(-1, 3), scene.tri_p1[:ntc],
+                scene.tri_e1[:ntc], scene.tri_e2[:ntc],
+                det_eps=scene.tri_det_eps[:ntc])
+            ts = torch.cat([ts, tts.reshape(r, s, ntc)], -1)
+            tri_off = sum(st.counts[:5])
+            col_gid = np.concatenate(
+                [col_gid, np.arange(tri_off, tri_off + ntc, dtype=np.int32)])
+        c = ts.shape[-1]
+        # the filter reads RAW ts (negative hits toggle containment), on
+        # the flattened [R*S, C] table
+        ts = apply_csg(scene, ts.reshape(r * s, c), col_gid, c).reshape(
+            r, s, c)
+
     pos_ok = (ts > 0.0) & torch.isfinite(ts)
     masked = torch.where(pos_ok, ts, INF)
     slot = masked.argmin(-1)

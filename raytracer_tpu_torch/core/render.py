@@ -1,23 +1,39 @@
 """The wavefront integrator: whole-tile ray batches, unrolled bounce tree.
 
-Counterpart of ``raytracer_tpu/core/render.py`` with point lights. The
-reference's recursive per-pixel color_at (world.rs:91-148) becomes a
-level-by-level loop: level L holds every ray spawned at bounce depth L,
-each level is one batched trace + shade, and contributions are
-pre-weighted by the product of reflective/transparency/Schlick factors
-along the path — linearity makes this exactly the recursive sum. Static
-scene flags prune branches whose weight is identically zero.
+Counterpart of ``raytracer_tpu/core/render.py``. The reference's recursive
+per-pixel color_at (world.rs:91-148) becomes a level-by-level loop: level L
+holds every ray spawned at bounce depth L, each level is one batched trace
++ shade, and contributions are pre-weighted by the product of
+reflective/transparency/Schlick factors along the path — linearity makes
+this exactly the recursive sum. Static scene flags prune branches whose
+weight is identically zero.
 
 Reference semantics preserved deliberately:
   * shade_hit adds reflected+refracted PER LIGHT (world.rs:64-89), so child
-    weights are multiplied by the light count;
+    weights are multiplied by the light count (area lights included);
   * is_shadowed tests only the nearest positive hit's shadow flag
-    (world.rs:101-111).
+    (world.rs:101-111);
+  * area lights draw fresh jitter for the intensity pass and the lighting
+    pass (lights.rs:105-134, materials.rs:136-175); the deterministic
+    sequence mode (``SceneStatic.jitter``) replaces the random draws like
+    the reference's test hook (lights.rs:77-81) and gives the JAX
+    package's values exactly.
 
-Not ported yet: area lights and CSG (``render`` raises for such scenes),
-and the JAX package's live-ray compaction of deep levels
-(``_packed_shade_level``), an exact reordering — full-width levels give the
-same image.
+Random jitter. Without a deterministic sequence, every area light of every
+level of every tile draws ``torch.rand((R, S, 4))`` from ONE
+``torch.Generator`` on the scene's device: tiles in order, within a tile
+the levels in order (a level that does not run draws nothing), within a
+level the area lights in order. ``render`` and ``color_at`` take
+``generator=None``, which means a generator seeded with 0 (the JAX
+package's default is ``PRNGKey(0)``). The stream is not JAX's threefry,
+and torch's CPU and CUDA generators give different streams for one seed,
+so seeded frames agree with the JAX package (and across devices) in
+distribution, not pixel for pixel.
+
+Not ported: the JAX package's live-ray compaction of deep levels
+(``_packed_shade_level``), an exact reordering — full-width levels give
+the same image — and its ``_max_mesh_tile`` clamp, which sizes tiles to the
+TPU's scalar memory.
 """
 
 from __future__ import annotations
@@ -60,22 +76,93 @@ def park_rays(o, d, active):
     )
 
 
-def _require_ported(static: T.SceneStatic):
-    if static.csg_nodes:
-        raise NotImplementedError(
-            "CSG scenes are not ported to raytracer_tpu_torch yet")
-    if static.area_steps:
-        raise NotImplementedError(
-            "area lights are not ported to raytracer_tpu_torch yet")
+def _det_jitter_tables(static: T.SceneStatic, s_total, phase=0):
+    """Deterministic jitter constants per sample (lights.rs:77-121 test
+    hook), the JAX package's tables exactly.
+
+    The reference cycles ONE sequence shared by every area light: per
+    shading point, ``intensity_at`` consumes 2 draws per sample in u-major
+    order (u jitter then v jitter), then ``lighting``'s area branch
+    consumes 2 more per sample in the same order (materials.rs:139-142).
+    The shading point starts at cycle ``phase``; the caller advances it by
+    ``4 * samples`` per preceding area light (world.rs:66-76). Each shading
+    point starts at phase 0 (the reference's per-pixel phase depends on
+    its thread schedule).
+    """
+    seq = static.jitter
+    n = len(seq)
+
+    def tab(off):
+        return np.array(
+            [seq[(phase + off + 2 * c) % n] for c in range(s_total)],
+            np.float32)
+
+    return tab(0), tab(1), tab(2 * s_total), tab(2 * s_total + 1)
 
 
-def shade_level(scene: T.Scene, o, d, weight):
-    """Trace + shade one wavefront level.
+def _area_light_contrib(scene, ai, over, eyev, normalv, base_color, mat_rows,
+                        generator, live=None, jitter_phase=0):
+    """Shadow fraction + sampled Phong for area light ``ai``, all in
+    [R, S] form: one shadow query of R x S rays through
+    intersect.shadow_blocked (the mesh kernel sees one call of R*S rays),
+    and Phong broadcasting [R, 1, ...] rows against [R, S, 3] samples."""
+    st = scene.static
+    us, vs = st.area_steps[ai]
+    s_total = us * vs
+    corner = scene.alight_corner[ai]
+    uvec = scene.alight_uvec[ai]
+    vvec = scene.alight_vvec[ai]
+    intensity = scene.alight_intensity[ai]
+    r = over.shape[0]
+    dev = over.device
+
+    uu = torch.as_tensor(np.repeat(np.arange(us, dtype=np.float32), vs),
+                         device=dev)                                  # [S]
+    vv = torch.as_tensor(np.tile(np.arange(vs, dtype=np.float32), us),
+                         device=dev)
+    if st.jitter is not None:
+        ju1, jv1, ju2, jv2 = (
+            torch.as_tensor(x, device=dev)[None, :]
+            for x in _det_jitter_tables(st, s_total, jitter_phase)
+        )                                                             # [1, S]
+    else:
+        jj = torch.rand((r, s_total, 4), generator=generator, device=dev)
+        ju1, jv1, ju2, jv2 = jj[..., 0], jj[..., 1], jj[..., 2], jj[..., 3]
+
+    def positions(ju, jv):
+        return (corner + (uu[None, :] + ju)[..., None] * uvec
+                + (vv[None, :] + jv)[..., None] * vvec)              # [R|1,S,3]
+
+    sh = I.shadow_blocked(scene, over, positions(ju1, jv1), live=live)
+    int_sum = (1.0 - sh.to(torch.float32)).sum(-1)                   # [R]
+
+    ds = SH.phong(
+        mat_rows[:, None], base_color[:, None], intensity[None, None],
+        positions(ju2, jv2), over[:, None], eyev[:, None], normalv[:, None],
+    ).sum(1)                                                          # [R, 3]
+
+    eff = base_color * intensity[None]
+    ambient = eff * scene_mat_col(mat_rows, T.MAT_AMBIENT)
+    frac = int_sum / s_total
+    return ambient + (ds / s_total) * frac[:, None]
+
+
+def _seeded(generator, device):
+    """``generator``, or a new one on ``device`` seeded with 0."""
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return generator
+
+
+def shade_level(scene: T.Scene, o, d, weight, generator=None):
+    """Trace + shade one wavefront level. ``generator`` draws the random
+    area-light jitter (see the module docstring); it may be None when the
+    scene has no area light or a deterministic jitter sequence.
 
     Returns (weighted surface color [R,3], reflect spawn, refract spawn),
     each spawn = (origin, direction, child_weight).
     """
-    _require_ported(scene.static)
     st = scene.static
     if st.has_transparency and not st.all_ri_one:
         # the n1/n2 container walk needs the whole candidate table
@@ -129,6 +216,14 @@ def shade_level(scene: T.Scene, o, d, weight):
                       eyev, normalv)
         surface = surface + ambient + ds * inten[:, None]
 
+    jitter_phase = 0  # the shared cycle advances 4*S per area light
+    for ai, (us, vs) in enumerate(st.area_steps):
+        surface = surface + _area_light_contrib(
+            scene, ai, over_sh, eyev, normalv, base_color, mat_rows,
+            generator, live=has, jitter_phase=jitter_phase,
+        )
+        jitter_phase += 4 * us * vs
+
     surface = torch.where(has[:, None], surface, 0.0)
 
     # --- secondary rays ---------------------------------------------------
@@ -144,7 +239,7 @@ def shade_level(scene: T.Scene, o, d, weight):
     refl_factor = torch.where(blend, r_schlick, 1.0)
     refr_factor = torch.where(blend, 1.0 - r_schlick, 1.0)
 
-    n_lights = float(n_point)
+    n_lights = float(n_point + len(st.area_steps))
     reflectv = SH.reflect(d, normalv)
     w_reflect = weight * torch.where(
         has, reflective * refl_factor * n_lights, 0.0
@@ -172,12 +267,15 @@ def shade_level(scene: T.Scene, o, d, weight):
     )
 
 
-def color_at(scene: T.Scene, origins, directions, limit=None):
+def color_at(scene: T.Scene, origins, directions, limit=None,
+             generator=None):
     """world.rs:91-99 over a ray batch, bounce tree unrolled level by
     level. Once every ray of a level has zero weight, that level and every
-    later one contribute nothing, so the loop stops there."""
-    _require_ported(scene.static)
+    later one contribute nothing, so the loop stops there. ``generator``:
+    the area-light jitter's (None: seed 0; see the module docstring)."""
     st = scene.static
+    if st.area_steps and st.jitter is None:
+        generator = _seeded(generator, origins.device)
     if limit is None:
         limit = st.recursion_limit
     r = origins.shape[0]
@@ -188,7 +286,7 @@ def color_at(scene: T.Scene, origins, directions, limit=None):
     for level in range(limit + 1):
         if level > 0 and not bool((w > 0.0).any()):
             break
-        colored, refl, refr = shade_level(scene, o, d, w)
+        colored, refl, refr = shade_level(scene, o, d, w, generator)
         img = img + colored.reshape(-1, r, 3).sum(0)
         if level == limit:
             break
@@ -278,25 +376,33 @@ def _order_tiles(h, w, tile, device):
 
 def pick_tile_rays(static: T.SceneStatic) -> int:
     """Rays per tile (each tile is one color_at batch). The structure of
-    the JAX package's choice; the constants are unswept on the H100."""
+    the JAX package's choice; the constants are unswept on the H100.
+    Area-light scenes take smaller tiles: their shadow and Phong math
+    holds [R, S, ...] sample tables (S = 100 for a 10x10 light), and a CSG
+    tree filters R x S rows of [C, C] pairs."""
     n_free_tris = static.counts[5] - static.n_csg_tris
+    if static.area_steps:
+        return 1 << 12 if static.csg_nodes else 1 << 14
     if static.has_blend:
         # blend spawn concatenation grows deep levels to 2^depth R
         return 1 << 14
     return 1 << 14 if n_free_tris > 20000 else 1 << 17
 
 
-def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False):
+def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
+           generator=None):
     """Full frame -> float32 [vsize, hsize, 3] numpy image, on the scene's
     device (``build_scene`` puts it on ``cuda`` unless told otherwise).
 
     ``quantize=True`` returns uint8 instead, quantized on the device with
     the formula of :func:`canvas.quantize_u8`, floor(clip(x,0,1)*255+0.5).
+    ``generator``: a ``torch.Generator`` on the scene's device for the
+    area-light jitter, which the tiles draw from in turn (None: seed 0;
+    see the module docstring).
 
     Matmuls and convolutions are held to full f32: TF32 would round the
     hit geometry the way the TPU's bf16 matrix pass did.
     """
-    _require_ported(scene.static)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = scene.device
@@ -307,11 +413,13 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False):
     order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile, device)
     inv, consts = camera_consts(camera, device)
     limit = scene.static.recursion_limit
+    if scene.static.area_steps and scene.static.jitter is None:
+        generator = _seeded(generator, device)
     outs = []
     with torch.no_grad():
         for idx in idx_tiles:
             o, d = _primary_rays(inv, consts, idx, camera.hsize)
-            c = color_at(scene, o, d, limit)
+            c = color_at(scene, o, d, limit, generator)
             if quantize:
                 c = torch.floor(c.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
             outs.append(c)

@@ -14,6 +14,16 @@ them.
   instances over a plane at 640x360, depth 4.
 * :func:`flagship` — ``__graft_entry__._flagship_scene`` and its camera.
 
+For the CLI path, :func:`write_obj` writes the generated mesh as the OBJ
+file that the YAML scenes name (``teapot.obj``), and two YAML scene texts
+drive area lights (one of 10x10 samples each):
+
+* :data:`CSG_AREA_YAML` (:func:`csg_area_yaml`) — the CSG tree of
+  ``examples/csg.py`` under ``bench.py``'s 10x10 area light, 640x360.
+* :data:`SOFT_GLASS_YAML` (:func:`soft_glass_yaml`) — glass_mesh's layout
+  as 56 ``teapot.obj`` groups, its point light replaced by a 10x10 area
+  light 2 units on a side, centred on it; 640x360.
+
 The mesh instance is :func:`revolved_mesh`, generated here: a closed-form
 surface of revolution of exactly 6,320 smooth triangles spanning the
 teapot model's raw box, so the teapot placements apply unchanged.
@@ -211,3 +221,108 @@ def flagship(hsize=1280, vsize=720):
     cam = Camera(hsize, vsize, math.pi / 3).with_transform(
         tf.view_transform((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)))
     return [light, floor, middle, left, right], cam
+
+
+# ------------------------------------------------------------- CLI scenes
+
+def write_obj(path, p, n):
+    """Write smooth triangles (p, n [N,3,3] f32: corners and their
+    normals) as a Wavefront OBJ: three ``v`` and three ``vn`` lines per
+    triangle, then ``f a//a b//b c//c``. Each value is written with
+    ``repr`` of its f32 value, so parsing it back gives the same floats."""
+    lines = []
+    for tri_p, tri_n in zip(np.asarray(p, np.float32),
+                            np.asarray(n, np.float32)):
+        lines += ["v " + " ".join(repr(float(x)) for x in c) for c in tri_p]
+        lines += ["vn " + " ".join(repr(float(x)) for x in c) for c in tri_n]
+    lines += [f"f {3 * i + 1}//{3 * i + 1} {3 * i + 2}//{3 * i + 2} "
+              f"{3 * i + 3}//{3 * i + 3}" for i in range(len(p))]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _camera_yaml(hsize, vsize, fov, frm, to):
+    return (f"- add: camera\n  width: {hsize}\n  height: {vsize}\n"
+            f"  field-of-view: {fov}\n  from: {list(frm)}\n"
+            f"  to: {list(to)}\n  up: [0, 1, 0]\n")
+
+
+def _area_light_yaml(corner, uvec, vvec, intensity):
+    return (f"- add: area-light\n  corner: {list(corner)}\n"
+            f"  uvec: {list(uvec)}\n  vvec: {list(vvec)}\n"
+            f"  usteps: 10\n  vsteps: 10\n  intensity: {list(intensity)}\n")
+
+
+def csg_area_yaml(hsize=640, vsize=360):
+    """examples/csg.py's tree — (sphere x1.3 intersect cube rotated PI/3)
+    minus the union of three radius-0.6 cylinders — lit by bench.py's
+    10x10 area light (corner (-1, 2, 4), 2 x 2 units, intensity 1.5)."""
+    return (
+        _camera_yaml(hsize, vsize, "PI/3", (0, 1.5, -5), (0, 0, 0))
+        + _area_light_yaml((-1, 2, 4), (2, 0, 0), (0, 2, 0), (1.5, 1.5, 1.5))
+        + """- add: csg
+  op: difference
+  args:
+  - kind: csg
+    op: intersect
+    args:
+    - kind: sphere
+      transform:
+        - [scale, 1.3, 1.3, 1.3]
+    - kind: cube
+      transform:
+        - [rotate-y, PI/3]
+  - kind: csg
+    op: union
+    args:
+    - kind: csg
+      op: union
+      args:
+      - kind: cylinder
+        transform:
+          - [scale, 0.6, 0.6, 0.6]
+          - [rotate-y, PI/3]
+        material:
+          color: [1, 0, 0]
+      - kind: cylinder
+        transform:
+          - [scale, 0.6, 0.6, 0.6]
+          - [rotate-x, PI/2]
+          - [rotate-y, PI/3]
+        material:
+          color: [0, 0, 1]
+    - kind: cylinder
+      transform:
+        - [scale, 0.6, 0.6, 0.6]
+        - [rotate-z, PI/2]
+        - [rotate-y, PI/3]
+      material:
+        color: [0, 1, 0]
+""")
+
+
+def soft_glass_yaml(instances=56, hsize=640, vsize=360):
+    """glass_mesh's scene as YAML over ``teapot.obj`` (pass the file from
+    :func:`write_obj` as ``--obj``): ``instances`` transparent groups
+    over a plane, lit by a 10x10 area light of 2 x 2 units centred on
+    glass_mesh's point light (-10, 20, -10)."""
+    out = (_camera_yaml(hsize, vsize, "PI/3", (0, 4.0, -12.0), (0, 1.0, 2.0))
+           + _area_light_yaml((-11.0, 20.0, -11.0), (2.0, 0.0, 0.0),
+                              (0.0, 0.0, 2.0), (1, 1, 1))
+           + "- add: plane\n  material:\n    specular: 0.0\n")
+    for i in range(instances):
+        out += (
+            "- add: group\n  obj: teapot.obj\n  transform:\n"
+            "    - [scale, 0.12, 0.12, 0.12]\n"
+            f"    - [rotate-y, {0.5 * i!r}]\n"
+            f"    - [translate, {-8.0 + 2.0 * (i % 9)!r}, 0.0, "
+            f"{3.0 + 2.5 * (i // 9)!r}]\n"
+            "  material:\n    color: [0.05, 0.05, 0.08]\n"
+            "    transparency: 0.9\n    refractive-index: 1.5\n"
+            "    diffuse: 0.1\n    ambient: 0.02\n    specular: 0.9\n"
+            "    shininess: 300.0\n")
+    return out
+
+
+CSG_AREA_YAML = csg_area_yaml()
+SOFT_GLASS_YAML = soft_glass_yaml()

@@ -148,3 +148,120 @@ def test_cuda_frame_matches_cpu_frame():
     cpu = render(build_scene(items, device="cpu"), cam, quantize=True)
     diff = np.abs(gpu.astype(int) - cpu.astype(int)).max(-1)
     assert (diff > 1).mean() <= 0.005
+
+
+def _area_layout_call(n_rays):
+    """The R x S layout of an area light's shadow query: receivers on the
+    floor, each with 100 rays toward the cells of a 10x10 square light, in
+    receiver-major order as shadow_blocked flattens them, over three
+    instances of the generated mesh (3 supergroups); padded to a multiple
+    of 256 rays as the intersect module pads. Returns the K1 arguments."""
+    from raytracer_tpu_torch.core import intersect as I
+
+    rng = np.random.default_rng(5)
+    p, _, _ = scenes.revolved_mesh()
+    p = p * 0.03
+    tris = np.concatenate([p + np.array([dx, 0.2, 0.0], np.float32)
+                           for dx in (-1.2, 0.0, 1.2)])
+    r = n_rays // 100
+    over = np.stack([rng.uniform(-2, 2, r), np.full(r, 1e-3),
+                     rng.uniform(-1, 1, r)], -1).astype(np.float32)
+    k = np.arange(10, dtype=np.float32)
+    cells = (np.array([-1.0, 3.0, -1.0], np.float32)
+             + (k[:, None, None] + 0.5) * np.array([0.2, 0, 0], np.float32)
+             + (k[None, :, None] + 0.5) * np.array([0, 0, 0.2], np.float32)
+             ).reshape(100, 3)
+    v = cells[None] - over[:, None]                             # [R,S,3]
+    dist = np.linalg.norm(v, axis=-1)
+    tri, bb = MC.pack_tri_planes_np(tris[:, 0], tris[:, 1] - tris[:, 0],
+                                    tris[:, 2] - tris[:, 0])
+    cu = lambda x: torch.as_tensor(np.ascontiguousarray(x), device="cuda")  # noqa: E731
+    o, d, cap = I._pad_rays(
+        cu(np.repeat(over, 100, axis=0)), cu((v / dist[..., None])
+                                             .reshape(-1, 3)),
+        cu(dist.reshape(-1).astype(np.float32)))
+    assert o.shape[0] % MC.RT == 0 and tri.shape[0] == 3
+    return (o, d, cu(tri), (cu(bb[0]), cu(bb[1]))), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "any_hit"])
+@pytest.mark.parametrize("rays", [65536, 1638400])
+def test_kernel_matches_plain_in_area_light_layout(rays, mode):
+    """K1 in the area-light layout (receivers x 100 samples, padded),
+    launched whole: 65,536 rays (16 slices per subtile) and 1,638,400 rays
+    (the main path's widest call: 1 slice, 6,400 CTAs). Its outputs against
+    the plain version in 65,536-ray blocks: t to rtol 1e-5, index on >=
+    99.9% of hits, existence and any-hit verdicts exact."""
+    _require_cuda()
+    block = 65536
+    (o, d, planes, bb), cap = _area_layout_call(rays)
+    assert o.shape[0] == rays
+    assert MC.walk_slices(rays) == {65536: 16, 1638400: 1}[rays]
+    kw = dict(any_hit=mode == "any_hit")
+    before = MC.mesh_nearest.launches
+    k = [x.cpu().numpy() for x in MC.mesh_nearest(o, d, planes, bb,
+                                                  t_init=cap, **kw)]
+    assert MC.mesh_nearest.launches == before + 1
+    found = 0
+    for b0 in range(0, rays, block):
+        sl = slice(b0, b0 + block)
+        p = [x.cpu().numpy() for x in MC.mesh_nearest_plain(
+            o[sl], d[sl], planes, bb, t_init=cap[sl], **kw)]
+        kt, ki = k[0][sl], k[1][sl]
+        hit = np.isfinite(p[0])
+        found += int(hit.sum())
+        assert (np.isfinite(kt) == hit).all()
+        np.testing.assert_allclose(kt[hit], p[0][hit], rtol=1e-5, atol=1e-8)
+        if mode == "any_hit":
+            assert (kt[hit] == 0.0).all()
+        elif hit.any():
+            assert (ki[hit] == p[1][hit]).mean() >= 0.999
+    assert 0.01 < found / rays < 0.99
+
+
+@pytest.mark.cuda
+def test_csg_area_light_frame_cuda_matches_cpu():
+    """CSG x a 10x10 area light (scenes.csg_area_yaml) at 96x54 in
+    deterministic jitter mode: cuda against the CPU, at most 0.5% of
+    pixels more than one u8 step apart."""
+    _require_cuda()
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    frames = []
+    for dev in ("cuda", "cpu"):
+        cam, sc = parse_scene(scenes.csg_area_yaml(96, 54), jitter=(0.5,),
+                              device=dev)
+        frames.append(render(sc, cam, quantize=True))
+    diff = np.abs(frames[0].astype(int) - frames[1].astype(int)).max(-1)
+    assert frames[0].std() > 1
+    assert (diff > 1).mean() <= 0.005
+
+
+@pytest.mark.cuda
+def test_cli_subprocess_on_cuda(tmp_path):
+    """``python -m raytracer_tpu_torch --device cuda`` on a small YAML
+    scene: exit 0 and a PPM of the camera's size."""
+    _require_cuda()
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from raytracer_tpu_torch.canvas import from_ppm_bytes
+
+    root = Path(__file__).resolve().parents[1]
+    scene = tmp_path / "scene.yaml"
+    scene.write_text(
+        "- add: camera\n  width: 32\n  height: 20\n  field-of-view: PI/3\n"
+        "  from: [0, 1.5, -5]\n  to: [0, 1, 0]\n  up: [0, 1, 0]\n"
+        "- add: point-light\n  at: [-10, 10, -10]\n  intensity: [1, 1, 1]\n"
+        "- add: plane\n- add: sphere\n  transform:\n"
+        "    - [translate, -0.5, 1, 0.5]\n")
+    out = tmp_path / "out.ppm"
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch", "--scene", str(scene),
+         "--out", str(out), "--device", "cuda"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    img = from_ppm_bytes(out.read_bytes())
+    assert img.shape == (20, 32, 3) and img.max() > 0.1

@@ -50,3 +50,22 @@ def unit_rays(rng, n, center=(0.0, 0.0, -5.0), spread=1.0, aim=(0, 0, 1.0),
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
 
+
+def assert_same_tables(jscene, pscene, skip_mesh=True):
+    """A JAX scene and a port scene hold the same static facts and the same
+    tables, exactly (the mesh kernel's packed planes are left out unless
+    ``skip_mesh`` is False: the JAX builder packs only 1024+ free
+    triangles)."""
+    assert dataclasses.asdict(pscene.static) == dataclasses.asdict(
+        jscene.static)
+    ja = jax_arrays(jscene)
+    for k in ARRAY_FIELDS:
+        if skip_mesh and k.startswith("mesh_"):
+            continue
+        a, b = ja[k], getattr(pscene, k)
+        assert (a is None) == (b is None), k
+        if a is None:
+            continue
+        b = b.cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
