@@ -53,8 +53,28 @@ Phases (any failure exits non-zero before the final line):
    and the two area-light scenes cut small on cuda against the CPU in
    deterministic jitter mode.
 
+7. the differentiable path (launch counters zeroed again just before it):
+   (7a) scenes.mesh_grad (6,320 triangles, a plane, a sphere; 64x48,
+   depth 2): opaque, the image MSE over the eye position through the
+   differentiable camera; glass, render_loss_and_grad over partition_scene's
+   default surface. Each on cuda against the CPU (loss to rtol 1e-5, every
+   gradient table to rtol 1e-3, atol 1e-5), central differences on the
+   card (the mesh's diffuse, the eye's y), and K1 launched by the backward
+   pass (the remat recompute). (7b) train cells at 512x256 = 131,072 rays
+   in render's block order, one warm-up step and 3 timed: glass_train
+   (glass_mesh, 353,920 triangles) and flagship_train, train_step with
+   n_micro=4, remat off (one more glass step with remat on), and
+   dragons_pose (1,061,760 triangles, Adam on the eye position); s/step,
+   rays/s fwd+bwd, peak memory, K1 launches per step by mode, the losses,
+   which must fall. Every K1 call of each cell's warm-up step (32,768-ray
+   microbatches at S = 32 slices per subtile for glass_train, 131,072 rays
+   at S = 8 for dragons_pose) is recorded with its outputs, which are held
+   against the plain version as in phase 2, in 65,536-ray blocks. (7c) one
+   step of each cell under torch.profiler. Then
+   ``raytracer_tpu_torch.examples.inverse_render --pose`` on the card.
+
 The last three lines of standard output: the card's name and power limit,
-one JSON object with the kernels' numbers (launches: phases 5 and 6), and
+one JSON object with the kernels' numbers (launches: phases 5 to 7), and
 the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
@@ -64,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -92,11 +113,14 @@ def smi_line():
 
 
 class Recorder:
-    """Wraps ops.mesh_cuda.mesh_nearest (as intersect calls it) and keeps
-    a copy of every call's arguments; the calls still go through."""
+    """Wraps ops.mesh_cuda.mesh_nearest (as intersect and MeshNearest call
+    it) and keeps a copy of every call's arguments (and, with
+    ``outputs=True``, of its outputs as numpy t, idx, u, v under "k");
+    the calls still go through."""
 
-    def __init__(self, mc):
+    def __init__(self, mc, outputs=False):
         self.mc = mc
+        self.outputs = outputs
         self.calls = []
 
     def __enter__(self):
@@ -109,11 +133,15 @@ class Recorder:
 
     def __call__(self, o, d, planes, bb, **kw):
         t = kw.get("t_init")
-        self.calls.append(dict(
-            o=o.clone(), d=d.clone(), planes=planes, bb=bb,
-            t_init=None if t is None else t.clone(),
-            any_hit=kw.get("any_hit", False), reverse=kw.get("reverse", False)))
-        return self.orig(o, d, planes, bb, **kw)
+        call = dict(
+            o=o.detach().clone(), d=d.detach().clone(), planes=planes, bb=bb,
+            t_init=None if t is None else t.detach().clone(),
+            any_hit=kw.get("any_hit", False), reverse=kw.get("reverse", False))
+        self.calls.append(call)
+        out = self.orig(o, d, planes, bb, **kw)
+        if self.outputs:
+            call["k"] = [x.cpu().numpy() for x in out]
+        return out
 
 
 def mode_of(call):
@@ -189,6 +217,22 @@ def compare_to_plain(mc, call, k, label, idx_min=0.999):
                                  f"{idx_ok:.4%} of hits")
     log(f"  {label:<34} mode={mode_of(call):<8} rays={call['o'].shape[0]:>6}"
         f" hits={int(hit.sum()):>6} max|dt|={err:.3g} idx_agree={idx_ok:.5f}")
+    return err
+
+
+def compare_blocks(mc, call, k, label):
+    """compare_to_plain over a whole call's outputs ``k``, the plain
+    version run in PLAIN_BLOCK-ray blocks (its [rays, CHUNK] tables would
+    not fit at a million rays), every block checked. Returns the max
+    |t_kernel - t_plain| over hits."""
+    err = 0.0
+    for b0 in range(0, call["o"].shape[0], PLAIN_BLOCK):
+        sl = slice(b0, b0 + PLAIN_BLOCK)
+        cut = dict(call, o=call["o"][sl], d=call["d"][sl],
+                   t_init=None if call["t_init"] is None
+                   else call["t_init"][sl])
+        err = max(err, compare_to_plain(mc, cut, [x[sl] for x in k],
+                                        f"{label}, rays {b0}+"))
     return err
 
 
@@ -322,20 +366,18 @@ def live_work(mc, call):
                                    call["bb"][1], call["t_init"])[1].sum())
 
 
-def profile_frame(scene, cam, s_per_frame):
-    """One frame under torch.profiler: device busy time (the sum of the
-    device-side kernel events), its idle share against the un-profiled
-    median frame time, and the top kernels."""
+def profile_run(fn, s_unprofiled):
+    """One call of ``fn`` under torch.profiler: device busy time (the sum
+    of the device-side kernel events), its idle share against the
+    un-profiled time of the same call, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from raytracer_tpu_torch.core.render import render
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render(scene, cam, quantize=True)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: the aten ops that launch them carry the
@@ -347,7 +389,8 @@ def profile_frame(scene, cam, s_per_frame):
     kern.sort(key=lambda e: -e.self_device_time_total)
     return dict(
         profiled_wall_s=wall, device_busy_s=busy_us / 1e6 if kern else None,
-        device_idle_share=(1 - busy_us / 1e6 / s_per_frame) if kern else None,
+        device_idle_share=(1 - busy_us / 1e6 / s_unprofiled) if kern
+        else None,
         n_device_ops=sum(e.count for e in kern),
         top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                   count=e.count) for e in kern[:8]],
@@ -632,14 +675,7 @@ def cli_phase(mc, dev, out_dir, dragons, dragons_img):
         log(f"  soft_glass any-hit area call: {r} rays, "
             f"{r // mc.RT * mc.walk_slices(r)} CTAs at S = "
             f"{mc.walk_slices(r)}; against plain in {PLAIN_BLOCK}-ray blocks")
-        for b0 in range(0, r, PLAIN_BLOCK):
-            sl = slice(b0, b0 + PLAIN_BLOCK)
-            cut = dict(wide, o=wide["o"][sl], d=wide["d"][sl],
-                       t_init=None if wide["t_init"] is None
-                       else wide["t_init"][sl])
-            e = compare_to_plain(mc, cut, [x[sl] for x in k],
-                                 f"soft_glass area, rays {b0}+")
-            max_err = max(max_err, e)
+        max_err = max(max_err, compare_blocks(mc, wide, k, "soft_glass area"))
         torch.cuda.reset_peak_memory_stats()
         timing["soft_glass:any_hit_area"] = k1_numbers(mc, wide, reps=3)
         timing["soft_glass:any_hit_area"]["max_memory_allocated"] = (
@@ -687,6 +723,338 @@ def cli_phase(mc, dev, out_dir, dragons, dragons_img):
     return dict(frames=results, checks=out, launches=launches,
                 by_mode=by_mode, pre_launches=pre_launches, timing=timing,
                 max_err=max_err, pre_err=pre_err)
+
+
+# phase 7's sizes: the gradient scene's camera, and the train cells' ray
+# batch (512x256 = 131,072 rays, the JAX package's train bench)
+GRAD_SIZE = (64, 48)
+TRAIN_SIZE = (512, 256)
+
+
+def block_rays(cam, dev):
+    """The camera's rays in render's 16x16-block order (each 256 rays one
+    K1 subtile, a tight frustum) and that order."""
+    import torch
+
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.core.render import _block_order
+
+    order = torch.as_tensor(_block_order(cam.vsize, cam.hsize, 16),
+                            device=dev)
+    o, d = ray_grid(cam, device=dev)
+    return o[order].contiguous(), d[order].contiguous(), order
+
+
+def eye_rays(cam, eye, order, to=None, up=None):
+    """The camera's rays from ``eye`` (a tensor) towards ``to`` (default
+    scenes.GRAD_TO, up scenes.GRAD_UP) through the differentiable camera,
+    in ``order``."""
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.camera import ray_grid_tensor, view_transform_tensor
+
+    inv = torch.linalg.inv(view_transform_tensor(
+        eye, scenes.GRAD_TO if to is None else to,
+        scenes.GRAD_UP if up is None else up))
+    o, d = ray_grid_tensor(inv, cam.hsize, cam.vsize, cam.field_of_view)
+    return o[order], d[order]
+
+
+def eye_loss_and_grads(mc, scene, cam, target, order, eye):
+    """Image MSE of ``scene`` with rays from ``eye`` (remat on): (loss,
+    {"eye": its gradient, the params' gradients}, K1 launches in the
+    forward, K1 launches in the backward)."""
+    import torch
+
+    from raytracer_tpu_torch.parallel import partition_scene, render_loss
+
+    params, recombine = partition_scene(scene)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    eye_t = torch.tensor(eye, device=scene.device, requires_grad=True)
+    o, d = eye_rays(cam, eye_t, order)
+    n0 = mc.mesh_nearest.launches
+    loss = render_loss(leaves, recombine, o, d, target)
+    n1 = mc.mesh_nearest.launches
+    loss.backward()
+    n2 = mc.mesh_nearest.launches
+    grads = {"eye": eye_t.grad, **{
+        k: torch.zeros_like(v) if v.grad is None else v.grad
+        for k, v in leaves.items()}}
+    return float(loss.detach()), grads, n1 - n0, n2 - n1
+
+
+def card_vs_cpu(label, got, want):
+    """(loss, grads) on the card against the CPU: loss to rtol 1e-5, every
+    table to rtol 1e-3, atol 1e-5. Returns the largest |difference|."""
+    import numpy as np
+
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, err_msg=label)
+    if set(got[1]) != set(want[1]):
+        raise AssertionError(f"{label}: gradient keys differ")
+    worst = 0.0
+    for k, g in got[1].items():
+        a, b = g.detach().cpu().numpy(), want[1][k].detach().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite gradient of {k}")
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5,
+                                   err_msg=f"{label}: {k}")
+        if a.size:
+            worst = max(worst, float(np.abs(a - b).max()))
+    log(f"  {label}: loss {got[0]!r} (cpu {want[0]!r}), largest gradient "
+        f"difference {worst:.3g} over {len(got[1])} tables")
+    return worst
+
+
+def grad_parity(mc, dev):
+    """7a: the mesh_grad scene (6,320 triangles, a plane and a sphere,
+    depth 2), opaque with the loss over the eye and glass with
+    partition_scene's default surface: the card against the CPU, finite
+    differences on the card, and K1 launched by the backward pass's
+    recompute."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core.render import color_at
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss, render_loss_and_grad)
+    from raytracer_tpu_torch.scene import build_scene
+
+    out = {}
+    h, v = GRAD_SIZE
+    target_np = np.random.default_rng(0).uniform(0, 1, (h * v, 3)).astype(
+        np.float32)
+    for glass in (False, True):
+        label = "glass" if glass else "opaque"
+        items, cam = scenes.mesh_grad(glass, h, v)
+        runs = {}
+        for where in (dev, torch.device("cpu")):
+            sc = build_scene(items, recursion_limit=2, device=where)
+            target = torch.as_tensor(target_np, device=where)
+            o, d, order = block_rays(cam, where)
+            if glass:
+                params, recombine = partition_scene(sc)
+                n0 = mc.mesh_nearest.launches
+                loss, grads = render_loss_and_grad(params, recombine, o, d,
+                                                   target)
+                n_all = mc.mesh_nearest.launches - n0
+                with torch.no_grad():
+                    render_loss(params, recombine, o, d, target)
+                fwd = mc.mesh_nearest.launches - n0 - n_all
+                runs[where.type] = (float(loss), grads, fwd, n_all - fwd)
+            else:
+                runs[where.type] = eye_loss_and_grads(
+                    mc, sc, cam, target, order, scenes.GRAD_EYE)
+            if where == dev:
+                card = (sc, o, d, target, order, cam)
+        k = runs[dev.type]
+        res = dict(loss=k[0], k1_forward=k[2], k1_backward=k[3])
+        log(f"  [7a] {label}: K1 launches forward {k[2]}, backward "
+            f"(the remat recompute) {k[3]}")
+        if k[3] <= 0:
+            raise AssertionError(f"{label}: the backward pass launched no K1")
+        res["max_grad_diff_vs_cpu"] = card_vs_cpu(
+            f"[7a] {label} cuda vs cpu", k[:2], runs["cpu"][:2])
+
+        sc, o, d, target, order, cam = card
+        if glass:            # central differences on the mesh's diffuse
+            params, recombine = partition_scene(sc)
+            g = sc.static
+            row = int(sc.mat_id[sum(g.counts[:5]) + int(sc.tri_tf_id[0])])
+            eps = 1e-3
+
+            def loss_at(delta):
+                mat = params["mat"].clone()
+                mat[row, 4] += delta
+                with torch.no_grad():
+                    img = color_at(recombine({**params, "mat": mat}), o, d)
+                return float(torch.mean((img - target) ** 2))
+
+            num = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+            ana = float(k[1]["mat"][row, 4])
+            ok = abs(ana - num) < 5e-3 * max(1.0, abs(num))
+            res["fd_mesh_diffuse"] = dict(analytic=ana, numeric=num)
+        else:                # central differences on the eye's y
+            eps = 1e-2
+
+            def loss_at(delta):
+                eye = torch.tensor(scenes.GRAD_EYE, device=dev)
+                eye[1] += delta
+                with torch.no_grad():
+                    img = color_at(sc, *eye_rays(cam, eye, order))
+                return float(torch.mean((img - target) ** 2))
+
+            num = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+            ana = float(k[1]["eye"][1])
+            ok = abs(ana - num) < max(0.3 * abs(num), 5e-3)
+            res["fd_eye_y"] = dict(analytic=ana, numeric=num)
+        log(f"  [7a] {label} finite differences: analytic {ana!r}, numeric "
+            f"{num!r}")
+        if not ok or ana == 0.0:
+            raise AssertionError(f"{label}: gradient {ana} against finite "
+                                 f"differences {num}")
+        out[label] = res
+    return out
+
+
+def timed_steps(label, mc, step, state, n_rays):
+    """One warm-up step, then 3 timed ones (host clock to a synchronize):
+    s/step (median), rays/s fwd+bwd, peak device memory over the timed
+    steps, K1 launches per step by mode and the loss of every step, which
+    must fall from the first step to the last. Every K1 call of the
+    warm-up step (the timed steps' shapes) is recorded with its outputs
+    and held against the plain version (compare_blocks). Returns
+    (numbers, state, the max |t_kernel - t_plain| over those calls)."""
+    import torch
+
+    losses = []
+    with Recorder(mc, outputs=True) as rec:
+        loss, state = step(state)
+    losses.append(float(loss))
+    max_err = 0.0
+    for i, call in enumerate(rec.calls):
+        max_err = max(max_err, compare_blocks(
+            mc, call, call["k"], f"{label} call {i} (S = "
+            f"{mc.walk_slices(call['o'].shape[0])})"))
+    checked = dict(calls=len(rec.calls), max_abs_err=max_err, slices=sorted(
+        {mc.walk_slices(c["o"].shape[0]) for c in rec.calls}))
+    del rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(mc.mesh_nearest.launches_by_mode)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, state = step(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    s = statistics.median(times)
+    res = dict(s_per_step=s, rays_per_s_fwd_bwd=n_rays / s,
+               step_times_s=times, losses=losses, rays=n_rays,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               k1_launches_per_step={
+                   k: (mc.mesh_nearest.launches_by_mode[k] - before[k]) / 3
+                   for k in before},
+               k1_checked_vs_plain=checked)
+    log(f"  [7b] {label}: {json.dumps(res)}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    return res, state, max_err
+
+
+def train_cells(mc, dev, dragons):
+    """7b: glass_train and flagship_train (train_step, SGD lr 1e-3 against
+    a black target, n_micro=4, remat off: the JAX package's train bench),
+    one more glass step with remat on, and dragons_pose (Adam on the eye
+    position against the frame from the true eye). Every batch is in
+    render's block order. Returns (numbers, {cell: (its step, the state
+    to step from)} for the profiles, the max |t_kernel - t_plain| over the
+    warm-up steps' K1 calls)."""
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core.render import color_at
+    from raytracer_tpu_torch.parallel import train_step
+    from raytracer_tpu_torch.scene import build_scene
+
+    h, v = TRAIN_SIZE
+    out, runs, max_err = {}, {}, 0.0
+    for label, (items, cam) in (
+            ("glass_train", scenes.glass_mesh(56, h, v)),
+            ("flagship_train", scenes.flagship(h, v))):
+        sc = build_scene(items, device=dev)
+        o, d, _ = block_rays(cam, dev)
+        black = torch.zeros_like(o)
+
+        def step(scene, o=o, d=d, black=black):
+            return train_step(scene, o, d, black, lr=1e-3, n_micro=4,
+                              remat=False)
+
+        out[label], sc, e = timed_steps(label, mc, step, sc, o.shape[0])
+        max_err = max(max_err, e)
+        runs[label] = (step, sc)
+        out[label].update(triangles=sc.static.counts[5],
+                          resolution=f"{h}x{v}", n_micro=4, remat=False)
+        if label == "glass_train":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = train_step(sc, o, d, black, lr=1e-3, n_micro=4,
+                                 remat=True)
+            torch.cuda.synchronize()
+            out[label]["remat_step"] = dict(
+                s=time.perf_counter() - t0, loss=float(loss),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            log(f"  [7b] glass_train, one step with remat on: "
+                f"{json.dumps(out[label]['remat_step'])}")
+
+    # dragons_pose: the dragons_equiv scene (1,061,760 triangles) at 512x256
+    _, cam = scenes.dragons_equiv(hsize=h, vsize=v)
+    frm, to, up = (0.0, 2.5, -10.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)
+    order = block_rays(cam, dev)[2]
+    with torch.no_grad():
+        target = color_at(dragons, *eye_rays(
+            cam, torch.tensor(frm, device=dev), order, to, up))
+    eye = torch.tensor(frm, device=dev) + torch.tensor(
+        [0.1, -0.1, -0.1], device=dev)
+    eye.requires_grad_(True)
+    opt = torch.optim.Adam([eye], lr=0.03)
+    grads = []
+
+    def pose_step(_):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((color_at(dragons, *eye_rays(cam, eye, order, to,
+                                                       up)) - target) ** 2)
+        loss.backward()
+        grads.append(eye.grad.detach().cpu().tolist())
+        if not bool(torch.isfinite(eye.grad).all()):
+            raise AssertionError(f"dragons_pose: gradient {eye.grad}")
+        opt.step()
+        return loss.detach(), None
+
+    out["dragons_pose"], _, e = timed_steps("dragons_pose", mc, pose_step,
+                                            None, h * v)
+    out["dragons_pose"].update(triangles=dragons.static.counts[5],
+                               resolution=f"{h}x{v}", eye_grads=grads,
+                               eye=eye.detach().cpu().tolist())
+    runs["dragons_pose"] = (pose_step, None)
+    return out, runs, max(max_err, e)
+
+
+def grad_phase(mc, dev, out_dir, dragons):
+    """Phase 7, the differentiable path on the card (launch counters zeroed
+    just before it)."""
+    from raytracer_tpu_torch.examples import inverse_render
+
+    log("[7] the differentiable path (K1 launch counters zeroed)")
+    mc.reset_launches()
+    out = {"parity": grad_parity(mc, dev)}
+    cells, runs, out["max_err"] = train_cells(mc, dev, dragons)
+    out["cells"] = cells
+    for label, (step, state) in runs.items():
+        cells[label]["profile"] = profile_run(
+            lambda: step(state), cells[label]["s_per_step"])
+        log(f"  [7c] one {label} step under torch.profiler: "
+            f"{json.dumps(cells[label]['profile'])}")
+    t0 = time.perf_counter()
+    pose = inverse_render.main(["--pose"], log=lambda *a: None)
+    out["inverse_render_pose"] = dict(
+        s=time.perf_counter() - t0, error=pose["error"],
+        translation=pose["translation"], first_loss=pose["losses"][0],
+        last_loss=pose["losses"][-1], steps=len(pose["losses"]))
+    log(f"  [7] examples/inverse_render --pose on the card: "
+        f"{json.dumps(out['inverse_render_pose'])}")
+    out["launches"] = mc.mesh_nearest.launches
+    out["by_mode"] = dict(mc.mesh_nearest.launches_by_mode)
+    out["pre_launches"] = mc.live_supergroups.launches
+    log(f"  K1 launches on the differentiable path: {out['launches']} "
+        f"{out['by_mode']}; K1b launches: {out['pre_launches']}")
+    if out["by_mode"]["nearest"] == 0 or out["by_mode"]["behind"] == 0:
+        raise AssertionError(f"phase 7 did not run K1 in nearest and "
+                             f"behind modes: {out['by_mode']}")
+    return out
 
 
 def main(argv=None):
@@ -823,8 +1191,8 @@ def main(argv=None):
                 busiest = max(mine, key=lambda c: live_work(MC, c))
                 timing[f"{label}:{mode}"] = k1_numbers(MC, busiest, reps=10)
                 log(f"  K1 {label} {mode}: {json.dumps(timing[label + ':' + mode])}")
-    prof = profile_frame(dragons, d_cam,
-                         results["dragons_equiv"]["s_per_frame"])
+    prof = profile_run(lambda: render(dragons, d_cam, quantize=True),
+                       results["dragons_equiv"]["s_per_frame"])
     log(f"  dragons_equiv frame under torch.profiler: {json.dumps(prof)}")
 
     # -- 6. the CLI path ----------------------------------------------------
@@ -836,6 +1204,13 @@ def main(argv=None):
     by_mode = {k: by_mode[k] + cli["by_mode"][k] for k in by_mode}
     max_err, pre_err = max(max_err, cli["max_err"]), max(pre_err,
                                                          cli["pre_err"])
+
+    # -- 7. the differentiable path -----------------------------------------
+    grad = grad_phase(MC, dev, out_dir, dragons)
+    launches += grad.pop("launches")
+    pre_launches += grad.pop("pre_launches")
+    max_err = max(max_err, grad["max_err"])
+    by_mode = {k: by_mode[k] + grad["by_mode"][k] for k in by_mode}
     main_k1 = timing["dragons:nearest"]
     kernels = [{
         "name": "mesh_nearest",
@@ -865,7 +1240,7 @@ def main(argv=None):
         "library_ms": None,
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
-                   dragons_profile=prof, cli_checks=cli["checks"],
+                   dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
                    seconds=time.perf_counter() - t_start)
     (out_dir / "numbers.json").write_text(json.dumps(summary, indent=1))
     log(f"total {summary['seconds']:.1f} s")

@@ -76,3 +76,71 @@ def ray_grid(camera: Camera, device="cuda"):
     as_t = lambda x: torch.as_tensor(  # noqa: E731
         np.ascontiguousarray(x, np.float32), device=device)
     return as_t(origins), as_t(directions)
+
+
+def _mat4_rows(a, b):
+    """a [n, 4] x b [4, 4]^T (rows of a through b), as sums of elementwise
+    products: no matmul, so no TF32 path rounds the camera."""
+    return (a[:, 0:1] * b[:, 0] + a[:, 1:2] * b[:, 1] + a[:, 2:3] * b[:, 2]
+            + a[:, 3:4] * b[:, 3])
+
+
+def view_transform_tensor(from_p, to_p, up):
+    """Differentiable view_transform (transformations.rs:122-134) over f32
+    tensors, the counterpart of the JAX package's ``view_transform_jax``:
+    gradients flow to the eye, the target and the up vector. -> [4, 4]."""
+    from_p, to_p, up = (torch.as_tensor(x, dtype=torch.float32)
+                        for x in (from_p, to_p, up))
+    to_p, up = to_p.to(from_p.device), up.to(from_p.device)
+
+    def norm(v):
+        return v / torch.clamp_min(torch.sqrt((v * v).sum()), 1e-12)
+
+    forward = norm(to_p - from_p)
+    left = torch.linalg.cross(forward, norm(up))
+    true_up = torch.linalg.cross(left, forward)
+    zero = forward.new_zeros(1)
+    orientation = torch.stack([
+        torch.cat([left, zero]), torch.cat([true_up, zero]),
+        torch.cat([-forward, zero]), forward.new_tensor([0.0, 0.0, 0.0, 1.0]),
+    ])
+    trans = torch.cat([
+        torch.cat([torch.eye(3, device=from_p.device), -from_p[:, None]], 1),
+        forward.new_tensor([[0.0, 0.0, 0.0, 1.0]]),
+    ])
+    return _mat4_rows(orientation, trans.T)
+
+
+def ray_grid_tensor(cam_inv, hsize: int, vsize: int, field_of_view):
+    """Differentiable whole-grid ray generation (camera.rs:45-64), the
+    counterpart of the JAX package's ``ray_grid_jax``.
+
+    ``cam_inv``: the INVERSE camera matrix [4, 4] (e.g.
+    ``torch.linalg.inv(view_transform_tensor(...))``). Returns (origins
+    [n, 3], directions [n, 3]) in row-major (py, px) order on
+    ``cam_inv``'s device; gradients flow to ``cam_inv`` and
+    ``field_of_view``."""
+    dev = cam_inv.device
+    fov = torch.as_tensor(field_of_view, dtype=torch.float32, device=dev)
+    half_view = torch.tan(fov / 2.0)
+    aspect = hsize / vsize
+    half_width = half_view if aspect >= 1.0 else half_view * aspect
+    half_height = half_view / aspect if aspect >= 1.0 else half_view
+    pixel_size = half_width * 2.0 / hsize
+
+    px = torch.arange(hsize, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(vsize, dtype=torch.float32, device=dev) + 0.5
+    world_x = half_width - px * pixel_size
+    world_y = half_height - py * pixel_size
+    wy, wx = torch.meshgrid(world_y, world_x, indexing="ij")
+    n = hsize * vsize
+    pixels_h = torch.stack([wx.reshape(-1), wy.reshape(-1),
+                            torch.full((n,), -1.0, device=dev),
+                            torch.ones(n, device=dev)], -1)
+    pixel_world = _mat4_rows(pixels_h, cam_inv)
+    origin_world = cam_inv[:, 3]               # cam_inv @ (0, 0, 0, 1)
+    directions = pixel_world[:, :3] - origin_world[:3]
+    directions = directions / torch.clamp_min(
+        torch.sqrt((directions * directions).sum(-1, keepdim=True)), 1e-12)
+    origins = origin_world[:3].expand(n, 3)
+    return origins, directions

@@ -320,15 +320,29 @@ def _pad_rays(origins, directions, t_cap):
 
 
 def _mesh_query(scene, origins, directions, t_cap, any_hit, reverse):
+    """One K1 query. When grad mode is on and the rays or the free
+    triangles' rows require grad, a nearest query goes through
+    :class:`~raytracer_tpu_torch.ops.mesh_cuda.MeshNearest` (the same
+    forward, plus its backward); otherwise :func:`mesh_nearest` runs on
+    detached inputs. An any-hit query returns verdicts and carries no
+    gradient; the cap never does (as in the JAX package's scan path)."""
     r = origins.shape[0]
-    o, d, cap = _pad_rays(origins, directions, t_cap)
-    t, idx, u, v = MC.mesh_nearest(
-        o.contiguous(), d.contiguous(), scene.mesh_planes,
-        (scene.mesh_bb_chunk, scene.mesh_bb_super),
-        t_init=None if cap is None else cap.contiguous(),
-        any_hit=any_hit, reverse=reverse,
-    )
     st = scene.static
+    o, d, cap = _pad_rays(origins, directions, t_cap)
+    o, d = o.contiguous(), d.contiguous()
+    cap = None if cap is None else cap.detach().contiguous()
+    bb = (scene.mesh_bb_chunk, scene.mesh_bb_super)
+    tris = tuple(x[st.n_csg_tris:]
+                 for x in (scene.tri_p1, scene.tri_e1, scene.tri_e2))
+    if (not any_hit and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (o, d) + tris)):
+        t, idx, u, v = MC.MeshNearest.apply(o, d, *tris, scene.mesh_planes,
+                                            bb, cap, reverse)
+    else:
+        with torch.no_grad():
+            t, idx, u, v = MC.mesh_nearest(o, d, scene.mesh_planes, bb,
+                                           t_init=cap, any_hit=any_hit,
+                                           reverse=reverse)
     count = st.counts[5] - st.n_csg_tris
     gid = sum(st.counts[:5]) + st.n_csg_tris + torch.clamp_max(idx[:r],
                                                                  count - 1)

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.core import intersect as I
@@ -267,12 +268,46 @@ def shade_level(scene: T.Scene, o, d, weight, generator=None):
     )
 
 
+def _shade_level_remat(scene, o, d, w, generator):
+    """:func:`shade_level` under ``torch.utils.checkpoint``: the backward
+    pass recomputes the level instead of keeping its intermediates.
+
+    Checkpoint replays the default RNG streams, not an explicit
+    ``torch.Generator``. So the level draws its jitter from a private
+    generator started from a snapshot of ``generator``; the recompute
+    starts from the same snapshot and draws the same jitter, and
+    ``generator`` moves on once, to where the first run left it."""
+    if generator is None:
+        return checkpoint(shade_level, scene, o, d, w, None,
+                          use_reentrant=False)
+    start = generator.get_state()
+    end = []
+
+    def level(o, d, w):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        out = shade_level(scene, o, d, w, g)
+        if not end:
+            end.append(g.get_state())
+        return out
+
+    out = checkpoint(level, o, d, w, use_reentrant=False)
+    generator.set_state(end[0])
+    return out
+
+
 def color_at(scene: T.Scene, origins, directions, limit=None,
-             generator=None):
+             generator=None, *, remat=False):
     """world.rs:91-99 over a ray batch, bounce tree unrolled level by
     level. Once every ray of a level has zero weight, that level and every
     later one contribute nothing, so the loop stops there. ``generator``:
-    the area-light jitter's (None: seed 0; see the module docstring)."""
+    the area-light jitter's (None: seed 0; see the module docstring).
+
+    ``remat=True`` runs every level under ``torch.utils.checkpoint``
+    (:func:`_shade_level_remat`): the backward pass recomputes each level's
+    trace, K1 included, instead of storing its intermediates, so only the
+    level inputs (o, d, w) live across it. A blend scene's deepest level
+    is 16R wide at depth 4. The forward values are the same either way."""
     st = scene.static
     if st.area_steps and st.jitter is None:
         generator = _seeded(generator, origins.device)
@@ -280,13 +315,14 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
         limit = st.recursion_limit
     r = origins.shape[0]
     img = torch.zeros((r, 3), device=origins.device)
+    level_fn = _shade_level_remat if remat else shade_level
 
     o, d = origins, directions
     w = torch.ones((r, 3), device=origins.device)
     for level in range(limit + 1):
         if level > 0 and not bool((w > 0.0).any()):
             break
-        colored, refl, refr = shade_level(scene, o, d, w, generator)
+        colored, refl, refr = level_fn(scene, o, d, w, generator)
         img = img + colored.reshape(-1, r, 3).sum(0)
         if level == limit:
             break
@@ -389,6 +425,14 @@ def pick_tile_rays(static: T.SceneStatic) -> int:
     return 1 << 14 if n_free_tris > 20000 else 1 << 17
 
 
+def full_f32():
+    """Hold matmuls and convolutions to full f32 on the card: TF32 would
+    round the hit geometry the way the TPU's bf16 matrix pass did. Every
+    entry point that runs the trace calls it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
            generator=None):
     """Full frame -> float32 [vsize, hsize, 3] numpy image, on the scene's
@@ -400,11 +444,9 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
     area-light jitter, which the tiles draw from in turn (None: seed 0;
     see the module docstring).
 
-    Matmuls and convolutions are held to full f32: TF32 would round the
-    hit geometry the way the TPU's bf16 matrix pass did.
+    Matmuls and convolutions are held to full f32 (:func:`full_f32`).
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     device = scene.device
     if tile_rays is None:
         tile_rays = pick_tile_rays(scene.static)

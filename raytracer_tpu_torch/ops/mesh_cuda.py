@@ -290,6 +290,93 @@ def reset_launches():
         _wrapper.launches_by_mode[k] = 0
 
 
+def _cross(a, b):
+    """a x b over the last axis of 3, written out."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], -1)
+
+
+def _dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+class MeshNearest(torch.autograd.Function):
+    """K1's nearest query (:func:`mesh_nearest`) with a gradient.
+
+    ``apply(origins, directions, p1, e1, e2, planes, bb, t_init,
+    reverse)``: ``p1``/``e1``/``e2`` [Nt, 3] are the free triangles' world
+    rows (``Scene.tri_p1[n_csg_tris:]`` ...) that ``planes`` packs; the
+    forward reads only the packed planes and boxes, through
+    :func:`mesh_nearest` (the kernel on cuda, the plain version on the
+    CPU). ``planes``, ``bb``, ``t_init`` and ``reverse`` carry no gradient,
+    and neither does ``t_init`` in the JAX package's scan path.
+
+    The backward is a recompute, not a kernel: per ray it gathers the
+    winning triangle's rows and differentiates _mt_chunk's t, u and v
+    (s = o - p1, p = d x e2, q = s x e1, det = e1.p; u = s.p/det,
+    v = d.q/det, t = e2.q/det) by hand. Rays that missed (parked and
+    padding rays among them) take det = 1 and a zero cotangent before any
+    product, so their gradients are exactly 0 and never 0 * inf. The
+    triangle gradients are scattered with ``index_add_``. ``reverse``
+    differentiates the query on (o, -d), the nearest-behind query.
+    """
+
+    @staticmethod
+    def forward(ctx, origins, directions, p1, e1, e2, planes, bb, t_init,
+                reverse):
+        t, idx, u, v = mesh_nearest(origins, directions, planes, bb,
+                                    t_init=t_init, reverse=reverse)
+        ctx.save_for_backward(origins, directions, p1, e1, e2, idx,
+                              torch.isfinite(t))
+        ctx.reverse = reverse
+        ctx.mark_non_differentiable(idx)
+        return t, idx, u, v
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx, g_u, g_v):
+        o, d, p1, e1, e2, idx, hit = ctx.saved_tensors
+        if ctx.reverse:
+            d = -d
+        row = torch.where(hit, idx, 0).long()
+        a, b, c = p1[row], e1[row], e2[row]                     # [R, 3]
+        zero = torch.zeros_like(g_t)
+        g_t, g_u, g_v = (torch.where(hit, g, zero) for g in (g_t, g_u, g_v))
+
+        s = o - a
+        p = _cross(d, c)
+        q = _cross(s, b)
+        inv = 1.0 / torch.where(hit, _dot(b, p), torch.ones_like(g_t))
+        # u = (s.p) inv, v = (d.q) inv, t = (e2.q) inv, inv = 1/det
+        g_inv = g_u * _dot(s, p) + g_v * _dot(d, q) + g_t * _dot(c, q)
+        g_det = -g_inv * inv * inv
+        g_s = (g_u * inv)[:, None] * p
+        g_p = (g_u * inv)[:, None] * s + g_det[:, None] * b
+        g_q = (g_v * inv)[:, None] * d + (g_t * inv)[:, None] * c
+        g_d = (g_v * inv)[:, None] * q + _cross(c, g_p)
+        g_s = g_s + _cross(b, g_q)
+        g_a = -g_s
+        g_b = g_det[:, None] * p + _cross(g_q, s)
+        g_c = (g_t * inv)[:, None] * q + _cross(g_p, d)
+        if ctx.reverse:
+            g_d = -g_d
+
+        m = hit[:, None]
+
+        def rows_to(table, g):
+            return torch.zeros_like(table).index_add_(
+                0, row, torch.where(m, g, 0.0))
+
+        need = ctx.needs_input_grad
+        return (torch.where(m, g_s, 0.0) if need[0] else None,
+                torch.where(m, g_d, 0.0) if need[1] else None,
+                rows_to(p1, g_a) if need[2] else None,
+                rows_to(e1, g_b) if need[3] else None,
+                rows_to(e2, g_c) if need[4] else None,
+                None, None, None, None)
+
+
 def _mt_chunk(o, d, tri):
     """Moller-Trumbore of rays [n, 3] against one chunk's plane rows
     [N_PLANES, CHUNK], in _mt_merge's order of operations. -> t, u, v

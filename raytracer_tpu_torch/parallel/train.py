@@ -1,0 +1,215 @@
+"""Differentiable rendering: loss, gradients and training steps.
+
+Counterpart of ``raytracer_tpu/parallel/train.py``. The whole level loop of
+:func:`~raytracer_tpu_torch.core.render.color_at` is differentiable torch,
+so scene parameters (material tables, light intensities, pattern colours,
+transforms ...) can be optimized against a target image. The free-mesh
+query reaches its gradient through
+:class:`~raytracer_tpu_torch.ops.mesh_cuda.MeshNearest`: the mesh kernel
+(or its plain version on the CPU) forward, a recompute of the winning
+triangle's Moller-Trumbore backward.
+
+Parameters are dicts of tensors named after the :class:`Scene` fields
+(:func:`partition_scene`); gradients come back as dicts of the same keys.
+The JAX package's ``make_optax_step`` becomes :func:`make_optim_step` over
+``torch.optim``. Its multi-device step (``make_sharded_train_step``) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.core.render import color_at, full_f32
+
+# Float tables DERIVED from (or coupled to) other tables at scene build:
+# inv_tf pairs with normal_mat, the triangle rows with their precomputed
+# world-space normals, pat_inv is the inverse of the pattern transform,
+# alight_pos comes from corner/uvec/vvec, and the mesh kernel's packed
+# tables copy the triangle rows. Optimizing one without its partners
+# desyncs geometry from shading, so they stay out of the default grad
+# surface (opt in with include_geometry=True and keep them consistent).
+DERIVED_GEOMETRY = frozenset({
+    "inv_tf", "normal_mat",
+    "tri_p1", "tri_e1", "tri_e2",
+    "tri_shade", "tri_det_eps",
+    "pat_inv",
+    "alight_corner", "alight_uvec", "alight_vvec", "alight_pos",
+    "mesh_planes", "mesh_bb_chunk", "mesh_bb_super",
+})
+
+
+def partition_scene(scene: T.Scene, *, include_geometry: bool = False):
+    """Split the scene into ``(params, recombine)``.
+
+    ``params``: the float tensors of the scene, by field name, outside
+    :data:`DERIVED_GEOMETRY` unless ``include_geometry``. Integer and bool
+    tables stay fixed. ``recombine(params)`` -> a :class:`Scene` with those
+    tensors in place of the originals."""
+    params, rest = {}, {}
+    for name in T.ARRAY_FIELDS:
+        val = getattr(scene, name)
+        if (isinstance(val, torch.Tensor) and val.is_floating_point()
+                and (include_geometry or name not in DERIVED_GEOMETRY)):
+            params[name] = val
+        else:
+            rest[name] = val
+
+    def recombine(p):
+        return T.Scene(**p, **rest, static=scene.static)
+
+    return params, recombine
+
+
+def render_loss(params, recombine, origins, directions, target,
+                generator=None, *, remat=True):
+    """Mean squared error between the rendered ray colours and ``target``
+    [R, 3]. ``generator``: the area-light jitter's (see ``color_at``).
+    Every training entry point renders through here, and so runs with
+    TF32 off (``full_f32``).
+
+    ``remat=True`` (default) recomputes each bounce level in the backward
+    pass instead of keeping its intermediates (``color_at``): a blend
+    scene's deepest level is 16x the ray batch wide."""
+    full_f32()
+    img = color_at(recombine(params), origins, directions,
+                   generator=generator, remat=remat)
+    return torch.mean((img - target) ** 2)
+
+
+def _leaves(params):
+    """Fresh leaf tensors holding the parameters' values."""
+    return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+
+def _grads(leaves, scale=1.0):
+    """The leaves' accumulated ``.grad`` (zeros where none reached them,
+    as ``jax.grad`` gives), times ``scale``."""
+    return {k: (torch.zeros_like(v) if v.grad is None else v.grad * scale)
+            for k, v in leaves.items()}
+
+
+def _grad_microbatched(params, recombine, origins, directions, target,
+                       generator, n_micro, remat=True):
+    """(loss, grads) of :func:`render_loss`, accumulated over ``n_micro``
+    equal sequential chunks of the ray axis, so the backward pass holds one
+    chunk at a time. Exact: the MSE over equal chunks averages to the full
+    batch's, and gradients are linear in the loss."""
+    n = origins.shape[0]
+    if n % n_micro:
+        raise ValueError(f"batch {n} not divisible by {n_micro} microbatches")
+    m = n // n_micro
+    leaves = _leaves(params)
+    loss_sum = torch.zeros((), device=origins.device)
+    for i in range(n_micro):
+        sl = slice(i * m, (i + 1) * m)
+        loss = render_loss(leaves, recombine, origins[sl], directions[sl],
+                           target[sl], generator, remat=remat)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    return loss_sum / n_micro, _grads(leaves, 1.0 / n_micro)
+
+
+def render_loss_and_grad(params, recombine, origins, directions, target,
+                         generator=None, *, n_micro=None, remat=True):
+    """(loss, grads) of :func:`render_loss` with respect to ``params``: the
+    entry point of custom optimization loops. ``n_micro`` accumulates the
+    gradient over that many sequential ray microbatches (exact; it bounds
+    the backward pass's memory by one microbatch). ``remat``: per-level
+    recompute (see :func:`render_loss`); with enough microbatches to fit
+    memory, ``remat=False`` saves the recompute."""
+    if n_micro is not None and n_micro > 1:
+        return _grad_microbatched(params, recombine, origins, directions,
+                                  target, generator, n_micro, remat=remat)
+    leaves = _leaves(params)
+    loss = render_loss(leaves, recombine, origins, directions, target,
+                       generator, remat=remat)
+    loss.backward()
+    return loss.detach(), _grads(leaves)
+
+
+def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,
+               generator=None, n_micro=None, remat=True):
+    """One SGD step on every float table of :func:`partition_scene`.
+    Returns (loss, the updated scene). ``n_micro``, ``remat``: see
+    :func:`render_loss_and_grad`."""
+    params, recombine = partition_scene(scene)
+    loss, grads = render_loss_and_grad(
+        params, recombine, origins, directions, target, generator,
+        n_micro=n_micro, remat=remat)
+    with torch.no_grad():
+        new = {k: p - lr * grads[k] for k, p in params.items()}
+    return loss, recombine(new)
+
+
+def make_optim_step(optimizer_factory, *, param_filter=None):
+    """A training step over the scene's float tables with a
+    ``torch.optim`` optimizer (the JAX package's ``make_optax_step``).
+
+    ``optimizer_factory(list_of_tensors)`` -> an optimizer, e.g.
+    ``torch.optim.Adam`` or ``functools.partial(torch.optim.Adam,
+    lr=1e-2)``. ``param_filter``: optional predicate ``name -> bool``
+    choosing the tables to optimize (the others stay fixed). Returns
+    ``(init_fn(scene) -> opt_state, step_fn(scene, opt_state, origins,
+    directions, target, generator=None) -> (loss, scene', opt_state'))``.
+    ``opt_state`` holds the optimizer and its parameter tensors; a step
+    first loads the values of the scene it is given into them."""
+    def split(scene):
+        params, recombine = partition_scene(scene)
+        keep = param_filter or (lambda _: True)
+        train = {k: v for k, v in params.items() if keep(k)}
+        frozen = {k: v for k, v in params.items() if not keep(k)}
+        return train, frozen, recombine
+
+    def init_fn(scene):
+        train, _, _ = split(scene)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in train.items()}
+        return optimizer_factory(list(leaves.values())), leaves
+
+    def step_fn(scene, opt_state, origins, directions, target,
+                generator=None):
+        opt, leaves = opt_state
+        train, frozen, recombine = split(scene)
+        with torch.no_grad():
+            for k, v in train.items():
+                leaves[k].copy_(v)
+        opt.zero_grad(set_to_none=True)
+        loss = render_loss({**leaves, **frozen}, recombine, origins,
+                           directions, target, generator)
+        loss.backward()
+        opt.step()
+        new = {k: v.detach().clone() for k, v in leaves.items()}
+        return loss.detach(), recombine({**new, **frozen}), opt_state
+
+    return init_fn, step_fn
+
+
+def with_prim_transform(scene: T.Scene, gid: int, matrix):
+    """The scene with primitive ``gid``'s world transform replaced,
+    differentiably: its world->object inverse and normal matrix are
+    recomputed from ``matrix`` [4, 4] (``torch.linalg.inv``), so a gradient
+    with respect to the matrix (or a pose that makes it) keeps them
+    consistent. The rows are replaced out of place.
+
+    Non-triangle primitives only: a mesh's vertices are baked into world
+    space at build, so reposing one needs a rebuild (``ValueError``).
+    ``gid`` is the primitive's global id, e.g.
+    ``scene.static.family_range("sphere")[0]``."""
+    full_f32()
+    g_nt = sum(scene.static.counts[:5])
+    if not 0 <= gid < g_nt:
+        raise ValueError(
+            f"gid {gid} is not a non-triangle primitive (0..{g_nt - 1})")
+    matrix = torch.as_tensor(matrix, dtype=torch.float32,
+                             device=scene.device)
+    inv = torch.linalg.inv(matrix)
+    row = torch.tensor([gid], device=scene.device)
+    return dataclasses.replace(
+        scene,
+        inv_tf=scene.inv_tf.index_put((row,), inv[None]),
+        normal_mat=scene.normal_mat.index_put((row,), inv.T[None, :3, :3]),
+    )

@@ -13,6 +13,8 @@ them.
 * :func:`glass_mesh` — ``bench.py``'s glass-mesh cell: transparent RI=1.5
   instances over a plane at 640x360, depth 4.
 * :func:`flagship` — ``__graft_entry__._flagship_scene`` and its camera.
+* :func:`mesh_grad` — one mesh instance, a sphere and a plane (opaque or
+  glass): the scene of the gradient checks through the mesh query.
 
 For the CLI path, :func:`write_obj` writes the generated mesh as the OBJ
 file that the YAML scenes name (``teapot.obj``), and two YAML scene texts
@@ -221,6 +223,53 @@ def flagship(hsize=1280, vsize=720):
     cam = Camera(hsize, vsize, math.pi / 3).with_transform(
         tf.view_transform((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)))
     return [light, floor, middle, left, right], cam
+
+
+# ---------------------------------------------------------- gradient scene
+
+# the camera of mesh_grad, for the differentiable camera functions
+GRAD_EYE, GRAD_TO, GRAD_UP = (0.0, 1.5, -5.0), (0.0, 0.8, 0.0), (0.0, 1.0, 0.0)
+GRAD_FOV = math.pi / 3
+
+
+def mesh_grad(glass, hsize=64, vsize=48):
+    """One revolved_mesh instance (6,320 triangles) over a checkered
+    plane, for gradients through the mesh query.
+
+    ``glass=False``: the mesh reflective and opaque, beside a reflective
+    sphere (all RIs 1: the nearest-hit path). ``glass=True``: the mesh at
+    transparency 0.9, RI 1.5 (the behind column and the n1/n2 walk),
+    behind a glass sphere of RI 1.3. Meshes that share one RI read it as
+    the constant ``SceneStatic.mesh_uniform_refr``, so the mesh's own RI
+    entry of ``mat`` takes no gradient; the sphere's does, and the rays it
+    refracts meet the mesh at level 1."""
+    p, n, smooth = revolved_mesh()
+    if glass:
+        mat = S.Material(color=(0.05, 0.05, 0.08), transparency=0.9,
+                         refractive_index=1.5, diffuse=0.1, ambient=0.02,
+                         specular=0.9, shininess=300.0)
+        sphere = S.Sphere(
+            transform=tf.translation(0.7, 0.6, -2.0) @ tf.scaling(0.6, 0.6, 0.6),
+            material=S.Material(color=(0.1, 0.1, 0.1), transparency=0.8,
+                                refractive_index=1.3, diffuse=0.1))
+    else:
+        mat = S.Material(color=(0.8, 0.3, 0.2), diffuse=0.7, reflective=0.3)
+        sphere = S.Sphere(
+            transform=tf.translation(1.8, 0.6, 1.0) @ tf.scaling(0.6, 0.6, 0.6),
+            material=S.Material(color=(0.1, 0.4, 0.9), diffuse=0.7,
+                                reflective=0.2))
+    items = [
+        S.PointLight(position=(-10.0, 10.0, -10.0)),
+        S.Plane(material=S.Material(specular=0.0, pattern=S.Pattern(
+            "checker", a=(1.0, 1.0, 1.0), b=(0.2, 0.2, 0.2)))),
+        sphere,
+        S.Group(transform=tf.translation(-0.3, 0.0, 0.0)
+                @ tf.scaling(0.1, 0.1, 0.1) @ tf.rotation_x(-math.pi / 2),
+                children=[S.Mesh(p=p, n=n, smooth=smooth, material=mat)]),
+    ]
+    cam = Camera(hsize, vsize, GRAD_FOV).with_transform(
+        tf.view_transform(GRAD_EYE, GRAD_TO, GRAD_UP))
+    return items, cam
 
 
 # ------------------------------------------------------------- CLI scenes

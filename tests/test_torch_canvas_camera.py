@@ -116,3 +116,38 @@ def test_block_order_matches_jax(h, w):
     np.testing.assert_array_equal(order2, order)
     assert tiles.shape[1] == 1024
     np.testing.assert_array_equal(tiles.reshape(-1)[: h * w].numpy(), order)
+
+
+@pytest.mark.parametrize("hsize,vsize", [(16, 8), (9, 14)])
+def test_tensor_camera_matches_jax_and_ray_grid(hsize, vsize):
+    """view_transform_tensor + ray_grid_tensor against the JAX package's
+    view_transform_jax + ray_grid_jax (the same function, 1e-6) and the
+    numpy ray_grid (1e-5); the gradient reaches the eye, the target and
+    the field of view."""
+    from raytracer_tpu.camera import ray_grid_jax, view_transform_jax
+    from raytracer_tpu_torch import transforms as tf
+    from raytracer_tpu_torch.camera import (
+        Camera, ray_grid_tensor, view_transform_tensor)
+
+    eye, to, up, fov = (0.3, 1.5, -5.0), (0.0, 1.0, 0.2), (0.0, 1.0, 0.0), 1.1
+    frm = torch.tensor(eye, requires_grad=True)
+    at = torch.tensor(to, requires_grad=True)
+    fov_t = torch.tensor(fov, requires_grad=True)
+    vt = view_transform_tensor(frm, at, up)
+    o, d = ray_grid_tensor(torch.linalg.inv(vt), hsize, vsize, fov_t)
+    j_vt = view_transform_jax(jnp.asarray(eye), jnp.asarray(to),
+                              jnp.asarray(up))
+    j_o, j_d = ray_grid_jax(jnp.linalg.inv(j_vt), hsize, vsize, fov)
+    np.testing.assert_allclose(vt.detach().numpy(), np.asarray(j_vt),
+                               atol=1e-6)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(j_o), atol=1e-6)
+    np.testing.assert_allclose(d.detach().numpy(), np.asarray(j_d), atol=1e-6)
+    cam = Camera(hsize, vsize, fov).with_transform(
+        tf.view_transform(eye, to, up))
+    n_o, n_d = ray_grid(cam, device="cpu")
+    np.testing.assert_allclose(o.detach().numpy(), n_o.numpy(), atol=1e-5)
+    np.testing.assert_allclose(d.detach().numpy(), n_d.numpy(), atol=1e-5)
+    (o.sum() + (d * torch.linspace(0, 1, d.numel()).reshape(d.shape)).sum()
+     ).backward()
+    for g in (frm.grad, at.grad, fov_t.grad):
+        assert torch.isfinite(g).all() and float(g.abs().sum()) > 0

@@ -1,5 +1,7 @@
 """raytracer_tpu_torch on the card: the CUDA mesh kernel against its plain
-version, and a frame rendered on cuda against the same frame on the CPU.
+version, a frame rendered on cuda against the same frame on the CPU, and
+the mesh query's gradient and a render loss's gradients on cuda against
+the CPU.
 
 Every test here carries the ``cuda`` marker and skips itself when there is
 no CUDA device. The file imports neither JAX nor the JAX package, so on a
@@ -265,3 +267,80 @@ def test_cli_subprocess_on_cuda(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     img = from_ppm_bytes(out.read_bytes())
     assert img.shape == (20, 32, 3) and img.max() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True], ids=["nearest", "reverse"])
+def test_mesh_nearest_grad_cuda_matches_cpu(reverse):
+    """MeshNearest on the card (the kernel forward, the torch recompute
+    backward) against the CPU (the plain version forward) on the
+    3-supergroup stream with caps: the gradients of sum(a.t + b.u + c.v)
+    over hits with respect to origins, directions and the triangle rows,
+    to rtol 1e-4 (atol 1e-5: the card scatters the triangle sums with
+    atomics, in another order)."""
+    _require_cuda()
+    c = mesh_cases.stream_case(4096)
+    tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
+    w = np.random.default_rng(3).normal(0, 1, (3, 4096)).astype(np.float32)
+    out = []
+    for dev in ("cuda", "cpu"):
+        def on(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+        leaves = [on(c[k]).requires_grad_(True)
+                  for k in ("o", "d", "p1", "e1", "e2")]
+        before = MC.mesh_nearest.launches
+        t, _, u, v = MC.MeshNearest.apply(
+            *leaves, on(tri), (on(bb[0]), on(bb[1])),
+            None if reverse else on(c["t_init"]), reverse)
+        assert MC.mesh_nearest.launches == before + (dev == "cuda")
+        hit = torch.isfinite(t)
+        a, b, cc = (on(x) for x in w)
+        torch.where(hit, a * torch.where(hit, t, 0.0) + b * u + cc * v,
+                    0.0).sum().backward()
+        out.append([hit.cpu().numpy()] + [x.grad.cpu().numpy()
+                                          for x in leaves])
+    (hit_k, *g_k), (hit_p, *g_p) = out
+    assert (hit_k == hit_p).all() and 100 < hit_p.sum() < 4000
+    for name, x, y in zip(("o", "d", "p1", "e1", "e2"), g_k, g_p):
+        assert np.isfinite(x).all(), name
+        np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_render_loss_and_grad_cuda_matches_cpu():
+    """render_loss_and_grad (remat on) on the glass mesh_grad scene at
+    32x24, depth 2: cuda against the CPU, the loss to rtol 1e-5 and every
+    gradient table to rtol 1e-3, atol 1e-5; the backward pass recomputes
+    the levels and launches the kernel again."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss, render_loss_and_grad)
+
+    items, cam = scenes.mesh_grad(True, 32, 24)
+    target = np.random.default_rng(0).uniform(0, 1, (32 * 24, 3)).astype(
+        np.float32)
+    res = []
+    for dev in ("cuda", "cpu"):
+        sc = build_scene(items, recursion_limit=2, device=dev)
+        o, d = ray_grid(cam, device=dev)
+        params, recombine = partition_scene(sc)
+        res.append(render_loss_and_grad(params, recombine, o, d,
+                                        torch.as_tensor(target, device=dev)))
+        if dev == "cuda":
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss = render_loss(leaves, recombine, o, d,
+                               torch.as_tensor(target, device=dev))
+            before = MC.mesh_nearest.launches
+            loss.backward()
+            assert MC.mesh_nearest.launches > before
+    (l_k, g_k), (l_p, g_p) = res
+    np.testing.assert_allclose(float(l_k), float(l_p), rtol=1e-5)
+    assert set(g_k) == set(g_p)
+    for k in g_p:
+        x = g_k[k].cpu().numpy()
+        assert np.isfinite(x).all(), k
+        np.testing.assert_allclose(x, g_p[k].numpy(), rtol=1e-3, atol=1e-5,
+                                   err_msg=k)

@@ -51,6 +51,29 @@ def unit_rays(rng, n, center=(0.0, 0.0, -5.0), spread=1.0, aim=(0, 0, 1.0),
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def assert_grads_match(got, want, rtol=1e-4, atol=1e-6, loose=None):
+    """Every gradient table of ``want`` (JAX) matches ``got`` (the port)
+    within rtol/atol, except at most ``loose[k] = (n, atol_k)`` entries of
+    table k, which must be within ``atol_k``."""
+    loose = loose or {}
+    for k in sorted(want):
+        a = np.asarray(want[k])
+        b = got[k].detach().cpu().numpy() if hasattr(got[k], "detach") \
+            else np.asarray(got[k])
+        assert a.shape == b.shape, k
+        assert np.isfinite(b).all(), k
+        n, atol_k = loose.get(k, (0, atol))
+        off = ~np.isclose(b, a, rtol=rtol, atol=atol)
+        assert off.sum() <= n, (k, int(off.sum()))
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=atol_k, err_msg=k)
+
+
+def mesh_row(scene):
+    """The material row of a scene's (first) mesh."""
+    g = sum(scene.static.counts[:5])
+    return int(scene.mat_id[g + int(scene.tri_tf_id[0])])
+
+
 def assert_same_tables(jscene, pscene, skip_mesh=True):
     """A JAX scene and a port scene hold the same static facts and the same
     tables, exactly (the mesh kernel's packed planes are left out unless
