@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the final line):
    index must win on every hit), any-hit shadow rays starting inside chunk
    boxes, a mesh whose last supergroup is mostly padding, and every K1
    call of one dragons_equiv tile and one glass_mesh tile at the main
-   path's shapes. t to rtol 1e-5, triangle index on >= 99.9% of hits
+   path's shapes (each call's width and gated tests per ray are logged:
+   the packed deep levels make calls narrower than the tile, and at least
+   one must be). t to rtol 1e-5, triangle index on >= 99.9% of hits
    (100% for the tie), hit existence and any-hit verdicts exact. The
    pre-pass kernel is held exactly against its torch version on every case
    (ids, counts and entries; the largest difference is reported).
@@ -72,9 +74,32 @@ Phases (any failure exits non-zero before the final line):
    against the plain version as in phase 2, in 65,536-ray blocks. (7c) one
    step of each cell under torch.profiler. Then
    ``raytracer_tpu_torch.examples.inverse_render --pose`` on the card.
+8. packed levels, resumable and multi-process rendering, the examples
+   (launch counters zeroed again just before it, and read just after 8d):
+   (8a) one dragons_equiv tile and one glass_mesh tile, each packed
+   level's live share and width (render.color_at compacts the live rays
+   of levels 1 to 4 to R/16, R/4, R/2 or R rows). (8b)
+   utils.render_resumable on dragons_equiv 1200x480, stopped after half
+   its tiles by an exception from a RenderStats hook, then resumed: the u8
+   frame against phase 5's (0.5% budget), rays/s of both parts, any retry
+   a failure. (8c) NCCL at world size 1 (a localhost TCP store):
+   parallel.render_sharded on dragons_equiv, one warm-up call then one
+   timed, against render; one make_sharded_train_step step on
+   glass_train's 131,072-ray batch against train_step (loss to rtol 1e-5,
+   tables to rtol 1e-4), the group torn down. (8d) examples basic_scene,
+   csg and hexagon at 1280x720 as subprocesses on the card: each a
+   well-formed P3 PPM, timed. Then, their K1 launches kept out of the
+   kernels line: 8a's level-2 inputs through _packed_shade_level and
+   shade_level, timed with CUDA events, the outputs equal once
+   un-permuted; each scene's whole frame with packing off and on in turns
+   (off, on, on, off; host clock), the u8 frames compared; one
+   glass_train and one dragons_pose step of phase 7 with packing off and
+   on in turns, each with its peak device memory and, from one more step
+   under torch.profiler, its device busy time.
 
 The last three lines of standard output: the card's name and power limit,
-one JSON object with the kernels' numbers (launches: phases 5 to 7), and
+one JSON object with the kernels' numbers (launches: the main-path runs
+of phases 5 to 8), and
 the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
@@ -100,8 +125,13 @@ MT_FLOPS = 50          # f32 operations of one ray x triangle test (about)
 PLAIN_BLOCK = 65536    # rays per block of the plain version in k1_numbers
 
 
+LOG = []     # the open log file of main's --out directory, once opened
+
+
 def log(*a):
     print(*a, flush=True)
+    for f in LOG:
+        print(*a, file=f, flush=True)
 
 
 def smi_line():
@@ -1017,7 +1047,7 @@ def train_cells(mc, dev, dragons):
     out["dragons_pose"], _, e = timed_steps("dragons_pose", mc, pose_step,
                                             None, h * v)
     out["dragons_pose"].update(triangles=dragons.static.counts[5],
-                               resolution=f"{h}x{v}", eye_grads=grads,
+                               resolution=f"{h}x{v}", eye_grads=list(grads),
                                eye=eye.detach().cpu().tolist())
     runs["dragons_pose"] = (pose_step, None)
     return out, runs, max(max_err, e)
@@ -1025,14 +1055,15 @@ def train_cells(mc, dev, dragons):
 
 def grad_phase(mc, dev, out_dir, dragons):
     """Phase 7, the differentiable path on the card (launch counters zeroed
-    just before it)."""
+    just before it). Its numbers keep each train cell's step and state
+    under "runs", for phase 8's packing off/on steps."""
     from raytracer_tpu_torch.examples import inverse_render
 
     log("[7] the differentiable path (K1 launch counters zeroed)")
     mc.reset_launches()
     out = {"parity": grad_parity(mc, dev)}
     cells, runs, out["max_err"] = train_cells(mc, dev, dragons)
-    out["cells"] = cells
+    out["cells"], out["runs"] = cells, runs
     for label, (step, state) in runs.items():
         cells[label]["profile"] = profile_run(
             lambda: step(state), cells[label]["s_per_step"])
@@ -1057,6 +1088,353 @@ def grad_phase(mc, dev, out_dir, dragons):
     return out
 
 
+def parked(out):
+    """A level's outputs with its zero-weight spawns parked, as color_at
+    parks them before the next level."""
+    from raytracer_tpu_torch.core.render import park_rays
+
+    colored, *spawns = out[:3]
+    return [colored] + [x for so, sd, sw in spawns for x in (
+        *park_rays(so, sd, (sw > 0.0).any(-1)), sw)]
+
+
+def packed_levels(scene, cam, label):
+    """8a: the middle tile's color_at, its packed levels recorded (live
+    share and width of each). Returns (the numbers, each level's inputs
+    and keywords)."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+
+    levels = []
+    real = R._packed_shade_level
+
+    def spy(scene_, o, d, w, generator=None, **kw):
+        levels.append(dict(o=o.detach().clone(), d=d.detach().clone(),
+                           w=w.detach().clone(), **kw))
+        return real(scene_, o, d, w, generator, **kw)
+
+    tile = min(R.pick_tile_rays(scene.static), cam.hsize * cam.vsize)
+    _, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, scene.device)
+    inv, consts = R.camera_consts(cam, scene.device)
+    R._packed_shade_level = spy
+    try:
+        with torch.no_grad():
+            o, d = R.tile_rays(inv, consts, idx_tiles[len(idx_tiles) // 2],
+                               cam.hsize)
+            R.color_at(scene, o, d)
+    finally:
+        R._packed_shade_level = real
+    res = dict(tile=tile, levels=[dict(
+        level=i + 1, live=int((lv["w"] > 0).any(-1).sum()),
+        live_share=float((lv["w"] > 0).any(-1).float().mean()),
+        width=lv["width"]) for i, lv in enumerate(levels)])
+    log(f"  [8a] {label} tile of {tile} rays, packed levels: "
+        f"{json.dumps(res['levels'])}")
+    if len(levels) < 2:
+        raise AssertionError(f"{label}: the tile ran {len(levels)} packed "
+                             f"levels, fewer than 2")
+    return res, levels
+
+
+def level2_timing(scene, label, res, levels):
+    """8a, after the main path's counts are read: level 2's recorded
+    inputs through _packed_shade_level (at the width color_at chose) and
+    shade_level, timed with CUDA events, the outputs equal once
+    un-permuted and parked."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+
+    packed = R._packed_shade_level
+    tile = res["tile"]
+    lv = levels[1]                                   # level 2
+    width = lv["width"]
+    with torch.no_grad():
+        full = parked(R.shade_level(scene, lv["o"], lv["d"], lv["w"]))
+        out = packed(scene, lv["o"], lv["d"], lv["w"], thread_perm=True,
+                   width=width)
+        back = torch.argsort(out[3])
+        got = [x[back] for x in parked(out)]
+        differ = [int((a != b).any(-1).sum()) if a.dim() > 1
+                  else int((a != b).sum()) for a, b in zip(got, full)]
+        res["level2_rows_differing"] = differ
+        if any(differ):
+            raise AssertionError(f"{label}: packed level 2 differs from "
+                                 f"the full-width level on {differ} rows")
+        res["level2_packed_ms"] = cuda_ms(lambda: packed(
+            scene, lv["o"], lv["d"], lv["w"], thread_perm=True,
+            width=width), 5)
+        res["level2_full_ms"] = cuda_ms(lambda: R.shade_level(
+            scene, lv["o"], lv["d"], lv["w"]), 5)
+    res["level2_width"] = width
+    log(f"  [8a] {label} level 2 ({res['levels'][1]['live']} live of "
+        f"{tile}, width {width}): packed {res['level2_packed_ms']:.3f} ms, "
+        f"full width {res['level2_full_ms']:.3f} ms; outputs equal")
+    return res
+
+
+def packing_ab(scene, cam, label):
+    """8a: whole frames with the packed levels off (render.packs forced
+    False) and on, in turns (off, on, on, off) after one warm-up frame
+    each; host clock to the u8 frame on the host. The frames must agree
+    (0.5% budget; packing is exact, so 0 pixels are expected)."""
+    import numpy as np
+
+    from raytracer_tpu_torch.core import render as R
+
+    real = R.packs
+    times = {"packed": [], "unpacked": []}
+    imgs = {}
+    try:
+        for mode in ("unpacked", "packed", "packed", "unpacked"):
+            R.packs = real if mode == "packed" else (lambda st, r: False)
+            if mode not in imgs:
+                imgs[mode] = R.render(scene, cam, quantize=True)   # warm-up
+            t0 = time.perf_counter()
+            imgs[mode] = R.render(scene, cam, quantize=True)
+            times[mode].append(time.perf_counter() - t0)
+    finally:
+        R.packs = real
+    res = dict(frame_s=times, packed_over_unpacked=float(
+        np.median(times["packed"]) / np.median(times["unpacked"])))
+    res["frames"] = u8_diff(imgs["packed"], imgs["unpacked"],
+                            f"[8a] {label} packed vs unpacked frame")
+    log(f"  [8a] {label} frames, packing off/on in turns: {json.dumps(res)}")
+    return res
+
+
+def packing_steps(runs):
+    """8a: one glass_train step and one dragons_pose step (phase 7's) with
+    the packed levels off and on in turns (off, on, on, off): each turn a
+    timed step (host clock to a synchronize) with its peak device memory,
+    then one more step under torch.profiler for its device busy time."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+
+    real = R.packs
+    out = {}
+    try:
+        for label in ("glass_train", "dragons_pose"):
+            step, state = runs[label]
+            res = {m: dict(s=[], max_memory_allocated=[], device_busy_s=[])
+                   for m in ("unpacked", "packed")}
+            for mode in ("unpacked", "packed", "packed", "unpacked"):
+                R.packs = real if mode == "packed" else (lambda st, r: False)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                step(state)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                res[mode]["s"].append(s)
+                res[mode]["max_memory_allocated"].append(
+                    torch.cuda.max_memory_allocated())
+                res[mode]["device_busy_s"].append(
+                    profile_run(lambda: step(state), s)["device_busy_s"])
+            out[label] = res
+            log(f"  [8a] {label} steps, packing off/on in turns: "
+                f"{json.dumps(res)}")
+    finally:
+        R.packs = real
+    return out
+
+
+class StopAfter(Exception):
+    """Raised by HaltingStats to stop a render part way."""
+
+
+def resumable_phase(out_dir, dragons, d_cam, dragons_img):
+    """8b: render_resumable on dragons_equiv, stopped after half its tiles
+    (a stats hook raises), then resumed; the u8 frame against phase 5's.
+    Any retry fails the run."""
+    import shutil
+
+    import numpy as np
+
+    from raytracer_tpu_torch.core.render import pick_tile_rays
+    from raytracer_tpu_torch.utils import RenderStats, render_resumable
+
+    tile = pick_tile_rays(dragons.static)
+    n_tiles = -(-d_cam.hsize * d_cam.vsize // tile)
+
+    class HaltingStats(RenderStats):
+        def end_tile(self, n_rays):
+            super().end_tile(n_rays)
+            if self.tiles == n_tiles // 2:
+                raise StopAfter
+
+    def no_retry(ti, attempt, reason):
+        raise AssertionError(f"resumable: tile {ti} retried: {reason}")
+
+    ckpt = out_dir / "resumable_dragons"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = HaltingStats()
+    try:
+        render_resumable(dragons, d_cam, ckpt, tile_rays=tile, stats=first,
+                         on_retry=no_retry)
+        raise AssertionError("resumable: the stats hook did not stop it")
+    except StopAfter:
+        pass
+    rest = RenderStats()
+    img = render_resumable(dragons, d_cam, ckpt, tile_rays=tile, stats=rest,
+                           on_retry=no_retry)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if first.tiles + rest.tiles != n_tiles:
+        raise AssertionError(f"resumable: {first.tiles} + {rest.tiles} "
+                             f"tiles rendered, not {n_tiles}")
+    u8 = np.floor(np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    res = dict(tiles=n_tiles, first_tiles=first.tiles,
+               resumed_tiles=rest.tiles, first=first.summary(),
+               resumed=rest.summary(),
+               rays_per_sec_first=first.rays_per_sec,
+               rays_per_sec_resumed=rest.rays_per_sec)
+    res["vs_phase5"] = u8_diff(u8, dragons_img,
+                               "[8b] resumed dragons_equiv vs phase 5")
+    log(f"  [8b] render_resumable dragons_equiv: {json.dumps(res)}")
+    return res
+
+
+def sharded_phase(dev, dragons, d_cam):
+    """8c: NCCL at world size 1 (a localhost TCP store): render_sharded on
+    dragons_equiv against render, one make_sharded_train_step step on
+    glass_train's batch against train_step, then the group torn down."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core.render import render
+    from raytracer_tpu_torch.parallel import (
+        init_distributed, make_mesh, make_sharded_train_step,
+        partition_scene, render_sharded, train_step)
+    from raytracer_tpu_torch.scene import build_scene
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    got = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    res = dict(rank_world=list(got), backend=dist.get_backend())
+    try:
+        mesh = make_mesh(dev.type)
+        want = render(dragons, d_cam)
+        t0 = time.perf_counter()
+        render_sharded(dragons, d_cam, mesh)     # warm-up: NCCL's set-up
+        res["sharded_warmup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        img = render_sharded(dragons, d_cam, mesh)
+        res["sharded_s"] = time.perf_counter() - t0
+        diff = np.abs(img - want)
+        res["sharded_max_abs_diff"] = float(diff.max())
+        res["sharded_pixels_differing"] = int((diff > 0).any(-1).sum())
+        q = lambda x: np.floor(np.clip(x, 0, 1) * 255 + 0.5).astype(np.uint8)  # noqa: E731
+        res["sharded_vs_render"] = u8_diff(
+            q(img), q(want),
+            f"[8c] render_sharded ({res['backend']}, 1 rank) vs render")
+
+        h, v = TRAIN_SIZE
+        items, cam = scenes.glass_mesh(56, h, v)
+        sc = build_scene(items, device=dev)
+        o, d, _ = block_rays(cam, dev)
+        black = torch.zeros_like(o)
+        step = make_sharded_train_step(mesh, lr=1e-3, n_micro=4, remat=False)
+        step(sc, o, d, black)                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_s, new_s = step(sc, o, d, black)
+        torch.cuda.synchronize()
+        res["sharded_step_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_1, new_1 = train_step(sc, o, d, black, lr=1e-3, n_micro=4,
+                                   remat=False)
+        torch.cuda.synchronize()
+        res["train_step_s"] = time.perf_counter() - t0
+        res["sharded_loss"], res["train_step_loss"] = float(loss_s), float(
+            loss_1)
+        np.testing.assert_allclose(float(loss_s), float(loss_1), rtol=1e-5,
+                                   err_msg="sharded step loss")
+        worst = 0.0
+        a, _ = partition_scene(new_s)
+        b, _ = partition_scene(new_1)
+        for k in a:
+            np.testing.assert_allclose(a[k].cpu().numpy(),
+                                       b[k].cpu().numpy(), rtol=1e-4,
+                                       atol=1e-7, err_msg=k)
+            if a[k].numel():
+                worst = max(worst, float((a[k] - b[k]).abs().max()))
+        res["step_tables_max_abs_diff"] = worst
+    finally:
+        dist.destroy_process_group()
+    log(f"  [8c] world size 1: {json.dumps(res)}")
+    return res
+
+
+def example_runs(dev, out_dir):
+    """8d: basic_scene, csg and hexagon at their default 1280x720 as
+    subprocesses on the card; each must print a well-formed P3 PPM."""
+    from raytracer_tpu_torch.canvas import from_ppm_bytes
+
+    out = {}
+    for name in ("basic_scene", "csg", "hexagon"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"raytracer_tpu_torch.examples.{name}",
+             "--device", dev.type], cwd=HERE, capture_output=True,
+            timeout=300)
+        s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:].decode()}")
+        img = from_ppm_bytes(proc.stdout)
+        if proc.stdout[:2] != b"P3" or img.shape != (720, 1280, 3) \
+                or not 0.0 < float(img.mean()) < 1.0:
+            raise AssertionError(f"example {name}: not a 1280x720 P3 PPM "
+                                 f"of a picture ({img.shape})")
+        out[name] = dict(s=s, ppm_bytes=len(proc.stdout),
+                         mean=float(img.mean()))
+    log(f"  [8d] examples on {dev.type}: {json.dumps(out)}")
+    return out
+
+
+def phase8(mc, dev, out_dir, dragons, d_cam, glass, g_cam, dragons_img,
+           runs):
+    """Phase 8: packed levels, resumable, sharded and the examples. The
+    launch counters are zeroed just before the main path's runs (the
+    recorded tiles, 8b, 8c, 8d) and read just after them; the level-2
+    timing and the packing off/on frames and steps run after that read,
+    and their launches are reported apart (``side_launches``)."""
+    log("[8] packed levels, resumable and sharded rendering, examples "
+        "(K1 launch counters zeroed)")
+    mc.reset_launches()
+    scenes_ = (("dragons_equiv", dragons, d_cam), ("glass_mesh", glass, g_cam))
+    recorded = {label: packed_levels(scene, cam, label)
+                for label, scene, cam in scenes_}
+    out = {"packed": {label: res for label, (res, _) in recorded.items()}}
+    out["resumable"] = resumable_phase(out_dir, dragons, d_cam, dragons_img)
+    out["sharded"] = sharded_phase(dev, dragons, d_cam)
+    out["examples"] = example_runs(dev, out_dir)
+    out["launches"] = mc.mesh_nearest.launches
+    out["by_mode"] = dict(mc.mesh_nearest.launches_by_mode)
+    out["pre_launches"] = mc.live_supergroups.launches
+    log(f"  K1 launches on phase 8's main path: {out['launches']} "
+        f"{out['by_mode']}; K1b launches: {out['pre_launches']}")
+    if out["launches"] == 0:
+        raise AssertionError("phase 8 launched no K1")
+
+    for label, scene, cam in scenes_:
+        res, levels = recorded[label]
+        level2_timing(scene, label, res, levels)
+        res["ab"] = packing_ab(scene, cam, label)
+    out["packing_steps"] = packing_steps(runs)
+    out["side_launches"] = mc.mesh_nearest.launches - out["launches"]
+    log(f"  K1 launches of the level-2 timing and the packing off/on runs "
+        f"(not in the kernels line): {out['side_launches']}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(HERE / "build" / "chip_smoke"),
@@ -1076,6 +1454,7 @@ def main(argv=None):
 
     from raytracer_tpu_torch import scenes
     from raytracer_tpu_torch import transforms as tf
+    from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core.render import color_at, render
     from raytracer_tpu_torch.mesh_cases import TIE_INDEX
     from raytracer_tpu_torch.ops import mesh_cuda as MC
@@ -1085,6 +1464,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    LOG.append(open(out_dir / "chip_smoke.log", "w"))
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1124,7 +1504,22 @@ def main(argv=None):
     glass = build_scene(g_items, device=dev)
     d_calls = record_tile(dragons, d_cam)
     g_calls = record_tile(glass, g_cam)
-    for label, calls in (("dragons", d_calls), ("glass", g_calls)):
+    for label, calls, sc in (("dragons", d_calls, dragons),
+                             ("glass", g_calls, glass)):
+        widths = [c["o"].shape[0] for c in calls]
+        tile = R.pick_tile_rays(sc.static)
+        per_ray = []
+        for c in calls:       # the gates' ray x triangle tests, per ray
+            tests = MC.mesh_nearest_plain(
+                c["o"], c["d"], c["planes"], c["bb"], t_init=c["t_init"],
+                any_hit=c["any_hit"], reverse=c["reverse"],
+                count_tests=True)[-1]
+            per_ray.append(round(tests["ray"] / c["o"].shape[0], 1))
+        log(f"  {label} tile of {tile} rays: K1 calls (mode, width, gated "
+            f"tests per ray): {list(zip(map(mode_of, calls), widths, per_ray))}")
+        if min(widths) >= tile:
+            raise AssertionError(f"{label}: no K1 call narrower than the "
+                                 f"tile (the packed levels)")
         for i, call in enumerate(calls):
             e, pe = check_kernel_vs_plain(MC, call, f"{label} tile call {i}")
             max_err, pre_err = max(max_err, e), max(pre_err, pe)
@@ -1207,10 +1602,18 @@ def main(argv=None):
 
     # -- 7. the differentiable path -----------------------------------------
     grad = grad_phase(MC, dev, out_dir, dragons)
+    runs = grad.pop("runs")
     launches += grad.pop("launches")
     pre_launches += grad.pop("pre_launches")
     max_err = max(max_err, grad["max_err"])
     by_mode = {k: by_mode[k] + grad["by_mode"][k] for k in by_mode}
+
+    # -- 8. packed levels, resumable and sharded rendering, examples ------
+    p8 = phase8(MC, dev, out_dir, dragons, d_cam, glass, g_cam, dragons_img,
+                runs)
+    launches += p8.pop("launches")
+    pre_launches += p8.pop("pre_launches")
+    by_mode = {k: by_mode[k] + p8["by_mode"][k] for k in by_mode}
     main_k1 = timing["dragons:nearest"]
     kernels = [{
         "name": "mesh_nearest",
@@ -1241,7 +1644,7 @@ def main(argv=None):
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
-                   seconds=time.perf_counter() - t_start)
+                   phase8=p8, seconds=time.perf_counter() - t_start)
     (out_dir / "numbers.json").write_text(json.dumps(summary, indent=1))
     log(f"total {summary['seconds']:.1f} s")
 

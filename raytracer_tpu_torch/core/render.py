@@ -30,13 +30,21 @@ and torch's CPU and CUDA generators give different streams for one seed,
 so seeded frames agree with the JAX package (and across devices) in
 distribution, not pixel for pixel.
 
-Not ported: the JAX package's live-ray compaction of deep levels
-(``_packed_shade_level``), an exact reordering — full-width levels give
-the same image — and its ``_max_mesh_tile`` clamp, which sizes tiles to the
-TPU's scalar memory.
+Live-ray compaction. Deep levels of mesh and area-light scenes are mostly
+parked rays, so ``color_at`` sorts a level's live rays to the front and
+shades only the narrowest of R/16, R/4, R/2 or R rows that holds them
+(:func:`_packed_shade_level`, the JAX package's rule and widths). The width
+is a host decision, read in the same sync as the whole-level skip; the JAX
+package's ``lax.cond`` chain takes that place there.
+
+Not ported: the JAX package's ``_max_mesh_tile`` clamp, which sizes tiles
+to the TPU's 1 MB of scalar memory; K1's pre-pass tables live in global
+memory and its launcher sizes the grid from the ray count.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -268,9 +276,57 @@ def shade_level(scene: T.Scene, o, d, weight, generator=None):
     )
 
 
-def _shade_level_remat(scene, o, d, w, generator):
-    """:func:`shade_level` under ``torch.utils.checkpoint``: the backward
-    pass recomputes the level instead of keeping its intermediates.
+def _packed_width(r: int, n_live: int) -> int:
+    """The narrowest of R/16, R/4, R/2 and R that holds ``n_live`` rays
+    (the JAX package's cond chain, ``render.py:338-348``)."""
+    for width in (r // 16, r // 4, r // 2):
+        if n_live <= width:
+            return width
+    return r
+
+
+def _packed_shade_level(scene: T.Scene, o, d, w, generator=None, *,
+                        thread_perm=False, width):
+    """:func:`shade_level` with the live rays (any weight > 0) moved to the
+    front in a stable order and shaded at ``width`` rows, the narrowest of
+    R/16, R/4, R/2 and R that holds them (:func:`_packed_width` of the live
+    count, which the caller has read). The rows past the live rays are
+    parked padding. Each ray's result does not depend on its batch or its
+    neighbours (K1's gates are conservative), so this is exact; the
+    area-light jitter is drawn at ``(width, S, 4)``, so a seeded frame
+    agrees with the full-width one in distribution.
+
+    Returns shade_level's outputs at R rows, in the rays' own order; with
+    ``thread_perm``, in the sorted order instead, plus the permutation
+    ``order`` (slot -> row), which the caller composes across levels and
+    undoes once (``color_at``)."""
+    r = o.shape[0]
+    live = (w > 0.0).any(-1)
+    order = torch.argsort((~live).to(torch.uint8), stable=True)
+    sel = order[:width]
+    colored, refl, refr = shade_level(scene, o[sel], d[sel], w[sel],
+                                      generator)
+    out = [colored]
+    for spawn in (refl, refr):
+        out += list(spawn)
+    if width < r:
+        zero = torch.zeros(3, dtype=colored.dtype, device=o.device)
+        po = torch.tensor(PARK_ORIGIN, dtype=o.dtype, device=o.device)
+        pd = torch.tensor(PARK_DIR, dtype=d.dtype, device=d.device)
+        fills = (zero, po, pd, zero, po, pd, zero)
+        out = [torch.cat([x, f.expand(r - width, 3)]) for x, f in
+               zip(out, fills)]
+    if not thread_perm:
+        inv_order = torch.argsort(order)
+        out = [x[inv_order] for x in out]
+    res = out[0], tuple(out[1:4]), tuple(out[4:7])
+    return res + (order,) if thread_perm else res
+
+
+def _remat(level_fn, scene, o, d, w, generator):
+    """``level_fn(scene, o, d, w, generator)`` under
+    ``torch.utils.checkpoint``: the backward pass recomputes the level
+    instead of keeping its intermediates.
 
     Checkpoint replays the default RNG streams, not an explicit
     ``torch.Generator``. So the level draws its jitter from a private
@@ -278,7 +334,7 @@ def _shade_level_remat(scene, o, d, w, generator):
     starts from the same snapshot and draws the same jitter, and
     ``generator`` moves on once, to where the first run left it."""
     if generator is None:
-        return checkpoint(shade_level, scene, o, d, w, None,
+        return checkpoint(level_fn, scene, o, d, w, None,
                           use_reentrant=False)
     start = generator.get_state()
     end = []
@@ -286,7 +342,7 @@ def _shade_level_remat(scene, o, d, w, generator):
     def level(o, d, w):
         g = torch.Generator(device=generator.device)
         g.set_state(start)
-        out = shade_level(scene, o, d, w, g)
+        out = level_fn(scene, o, d, w, g)
         if not end:
             end.append(g.get_state())
         return out
@@ -296,6 +352,16 @@ def _shade_level_remat(scene, o, d, w, generator):
     return out
 
 
+def packs(static: T.SceneStatic, r: int) -> bool:
+    """Whether ``color_at`` compacts a level of ``r`` rays (the JAX
+    package's rule, ``render.py:406-410``): mesh scenes of over 20,000
+    free triangles and area-light scenes, at R >= 4096 and R % 16 == 0.
+    Scenes of small primitives keep their levels mostly live, and there a
+    sort costs more than it saves."""
+    return bool((static.counts[5] - static.n_csg_tris > 20000
+                 or static.area_steps) and r >= 4096 and r % 16 == 0)
+
+
 def color_at(scene: T.Scene, origins, directions, limit=None,
              generator=None, *, remat=False):
     """world.rs:91-99 over a ray batch, bounce tree unrolled level by
@@ -303,11 +369,19 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     later one contribute nothing, so the loop stops there. ``generator``:
     the area-light jitter's (None: seed 0; see the module docstring).
 
+    Levels after the first are compacted where :func:`packs` says so
+    (:func:`_packed_shade_level`): the live count, read once per level for
+    the skip, picks the width. Without a blend material the level width
+    stays R, so the packed levels keep their outputs in sorted order, the
+    image follows, and the composed permutation is undone once at the end
+    (``thread_perm``); blend scenes, whose levels double by concatenation,
+    un-permute each level.
+
     ``remat=True`` runs every level under ``torch.utils.checkpoint``
-    (:func:`_shade_level_remat`): the backward pass recomputes each level's
-    trace, K1 included, instead of storing its intermediates, so only the
-    level inputs (o, d, w) live across it. A blend scene's deepest level
-    is 16R wide at depth 4. The forward values are the same either way."""
+    (:func:`_remat`): the backward pass recomputes each level's trace, K1
+    included, instead of storing its intermediates, so only the level
+    inputs (o, d, w) live across it. A blend scene's deepest level is 16R
+    wide at depth 4. The forward values are the same either way."""
     st = scene.static
     if st.area_steps and st.jitter is None:
         generator = _seeded(generator, origins.device)
@@ -315,15 +389,34 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
         limit = st.recursion_limit
     r = origins.shape[0]
     img = torch.zeros((r, 3), device=origins.device)
-    level_fn = _shade_level_remat if remat else shade_level
 
     o, d = origins, directions
     w = torch.ones((r, 3), device=origins.device)
+    # composed live-first permutation (slot -> original row) of the packed
+    # levels that keep their outputs sorted; img follows the slot order
+    perm = None
+    thread_perm = not st.has_blend
     for level in range(limit + 1):
-        if level > 0 and not bool((w > 0.0).any()):
-            break
-        colored, refl, refr = level_fn(scene, o, d, w, generator)
-        img = img + colored.reshape(-1, r, 3).sum(0)
+        level_fn = shade_level
+        if level > 0:
+            n_live = int((w > 0.0).any(-1).sum())   # the level's one sync
+            if n_live == 0:
+                break
+            if packs(st, o.shape[0]):
+                level_fn = functools.partial(
+                    _packed_shade_level, thread_perm=thread_perm,
+                    width=_packed_width(o.shape[0], n_live))
+        if remat:
+            colored, refl, refr, *order = _remat(level_fn, scene, o, d, w,
+                                                 generator)
+        else:
+            colored, refl, refr, *order = level_fn(scene, o, d, w, generator)
+        if order:
+            perm = order[0] if perm is None else perm[order[0]]
+            # the spawn merge below takes refl/refr in this order too
+            img = img[order[0]] + colored
+        else:
+            img = img + colored.reshape(-1, r, 3).sum(0)
         if level == limit:
             break
         spawns = []
@@ -348,6 +441,8 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
             w = torch.cat([s[2] for s in spawns], 0)
         # park zero-weight spawns: they cost the mesh kernel nothing
         o, d = park_rays(o, d, (w > 0.0).any(-1))
+    if perm is not None:
+        img = img[torch.argsort(perm)]      # undo the composed permutation
     return img
 
 

@@ -12,8 +12,8 @@ triangle's Moller-Trumbore backward.
 Parameters are dicts of tensors named after the :class:`Scene` fields
 (:func:`partition_scene`); gradients come back as dicts of the same keys.
 The JAX package's ``make_optax_step`` becomes :func:`make_optim_step` over
-``torch.optim``. Its multi-device step (``make_sharded_train_step``) is not
-ported yet.
+``torch.optim``; its sharded step is :func:`make_sharded_train_step`, over
+``torch.distributed`` (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.render import color_at, full_f32
+from raytracer_tpu_torch.parallel.mesh import _layout
 
 # Float tables DERIVED from (or coupled to) other tables at scene build:
 # inv_tf pairs with normal_mat, the triangle rows with their precomputed
@@ -140,9 +141,13 @@ def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,
     loss, grads = render_loss_and_grad(
         params, recombine, origins, directions, target, generator,
         n_micro=n_micro, remat=remat)
+    return loss, recombine(_sgd(params, grads, lr))
+
+
+def _sgd(params, grads, lr):
+    """The SGD update ``p - lr * g`` of every parameter."""
     with torch.no_grad():
-        new = {k: p - lr * grads[k] for k, p in params.items()}
-    return loss, recombine(new)
+        return {k: p - lr * grads[k] for k, p in params.items()}
 
 
 def make_optim_step(optimizer_factory, *, param_filter=None):
@@ -186,6 +191,48 @@ def make_optim_step(optimizer_factory, *, param_filter=None):
         return loss.detach(), recombine({**new, **frozen}), opt_state
 
     return init_fn, step_fn
+
+
+def make_sharded_train_step(mesh=None, *, lr=1e-2, n_micro=None,
+                            remat=True):
+    """A train step over a ray batch split across ranks, the parameters
+    replicated (the counterpart of the JAX package's sharded step).
+
+    The returned ``step(scene, origins, directions, target, generator=None)
+    -> (loss, scene')`` takes this rank's shard of the batch. Each rank
+    computes :func:`render_loss_and_grad` on its shard (``n_micro``
+    sequential microbatches of it; ``remat`` as there), then one
+    ``all_reduce`` per mesh dimension (the ranks of a host first, then the
+    hosts; over float64) sums the loss and gradients weighted by the shards'
+    ray counts, so loss and gradients are those of the concatenated global
+    batch, on every rank, and every rank applies the same SGD update.
+    ``mesh``: a mesh of :mod:`~raytracer_tpu_torch.parallel.mesh` (None: the
+    default group; one process alone: :func:`train_step`'s numbers)."""
+    _, _, groups = _layout(mesh)
+
+    def step(scene, origins, directions, target, generator=None):
+        params, recombine = partition_scene(scene)
+        loss, grads = render_loss_and_grad(
+            params, recombine, origins, directions, target, generator,
+            n_micro=n_micro, remat=remat)
+        keys = sorted(grads)
+        n = float(origins.shape[0])
+        flat = torch.cat([torch.stack([loss.double() * n,
+                                       loss.new_tensor(n).double()])]
+                         + [grads[k].reshape(-1).double() * n for k in keys])
+        for g in groups:
+            torch.distributed.all_reduce(flat, group=g)
+        total = flat[1]
+        loss = (flat[0] / total).float()
+        off = 2
+        for k in keys:
+            size = grads[k].numel()
+            grads[k] = (flat[off:off + size] / total).float().reshape(
+                grads[k].shape)
+            off += size
+        return loss, recombine(_sgd(params, grads, lr))
+
+    return step
 
 
 def with_prim_transform(scene: T.Scene, gid: int, matrix):
