@@ -28,15 +28,17 @@ Phases (any failure exits non-zero before the final line):
    the CPU; at most 0.5% of pixels more than one u8 step apart.
 5. full width (the main path, launch counters zeroed just before it):
    dragons_equiv() 1200x480 (1,061,760 triangles), glass_mesh() 640x360,
-   flagship() 1280x720, all depth 4: one warm-up frame, the median of 3
-   timed frames, K1 launches per frame by mode, peak device memory, one
-   PPM each. Then, for the busiest K1 call of each mode of a mid-frame
-   tile (CUDA events): the call's time, its kernel's and its pre-pass's
-   (kernel and torch) times, the CTAs launched and slices chosen, the
-   gated ray x triangle tests per ray, warp and block (from the plain
-   version), the bound and its share, the plain version's time. Then one
-   dragons frame under torch.profiler (device busy and idle share, top
-   kernels).
+   flagship() 1280x720, all depth 4, through render's default path (each
+   tile's levels replayed as CUDA graphs, core/tile_program.py; the
+   warm-up frame captures them): one warm-up frame, the median of 3
+   timed frames, K1 launches per frame by mode (counted from the
+   replays), peak device memory, one PPM each. Then, for the busiest K1
+   call of each mode of a mid-frame tile (CUDA events): the call's time,
+   its kernel's and its pre-pass's (kernel and torch) times, the CTAs
+   launched and slices chosen, the gated ray x triangle tests per ray,
+   warp and block (from the plain version), the bound and its share, the
+   plain version's time. Then one dragons frame under torch.profiler
+   (device busy and idle share, top kernels, the host's runtime calls).
 6. the CLI path (launch counters zeroed again just before its frames):
    ``python3 -m raytracer_tpu_torch --scene benchmarks/dragons_equiv.yaml
    --obj teapot.obj`` once as a subprocess (teapot.obj written by
@@ -91,13 +93,14 @@ Phases (any failure exits non-zero before the final line):
    well-formed P3 PPM, timed. Then, their K1 launches kept out of the
    kernels line: 8a's level-2 inputs through _packed_shade_level and
    shade_level, timed with CUDA events, the outputs equal once
-   un-permuted; each scene's whole frame with packing off and on in turns
-   (off, on, on, off; host clock), the u8 frames compared; one
+   un-permuted; each scene's whole graphed frame with packing off (on a
+   second Scene object of the same tables) and on in turns (off, on, on,
+   off; host clock), the u8 frames compared; one
    glass_train and one dragons_pose step of phase 7 with packing off and
    on in turns, each with its peak device memory and, from one more step
    under torch.profiler, its device busy time.
 9. the differential fuzz (launch counters zeroed again just before its
-   frames and gradient, read just after them): first,
+   frames and gradient, read just after them; the frames graphed): first,
    intersect.mat3_apply on the card (torch's addcmul, a fused
    multiply-add there) must equal the CPU's f64 steps bit for bit. Then
    scenes.random_scene(seed) for seeds 1 to 30 (CSG trees on odd seeds, a
@@ -113,16 +116,39 @@ Phases (any failure exits non-zero before the final line):
    logged; every even seed must launch K1 nearest and any-hit, and every
    seed divisible by 4 the behind mode too. Then render_loss_and_grad of
    seed 12 (a transparent mesh and an area light, 64x48) on the card
-   against the CPU, as in 7a. After the counters are read, every K1 call
-   of the frames is held against the plain version as in phase 2, and its
-   pre-pass exactly against the torch version. Last, kept out of the
-   kernels line: mat3_apply unfused (as before the fuzz's repair) against
-   fused, timed with CUDA events at a tile's shapes, then flagship and
-   glass_mesh frames in turns with each one's profiled device time.
+   against the CPU, as in 7a. After the counters are read, each frame is
+   rendered again through the eager loop (graphs=False), which must give
+   the same u8 frame, with its K1 calls recorded: every one is held
+   against the plain version as in phase 2, and its pre-pass exactly
+   against the torch version. Last, kept out of the kernels line:
+   mat3_apply unfused (as before the fuzz's repair) against fused, timed
+   with CUDA events at a tile's shapes, then flagship and glass_mesh
+   frames in turns (graphed; the unfused frames on a second Scene object
+   of the same tables, captured with the unfused function) with each
+   one's profiled device time.
+10. the compiled frame: (10a) the dragons tile's first nearest K1 call
+   and its K1b pre-pass, each captured alone in a CUDA graph, replayed on
+   two fresh inputs (the rays moved and turned by a little noise) copied
+   into their static buffers: K1 against the plain version at phase 2's
+   tolerances, K1b exactly. (10b, launch counters zeroed just before and
+   read just after) dragons_equiv, glass_mesh, flagship,
+   cli_csg_area_light (random jitter) and cli_soft_glass, graphed
+   (render's default) against graphs=False in turns: a warm-up of each,
+   then 3 pairs of u8 frames and one pair of f32 frames, every pair bit
+   for bit equal; s/frame of each side, the program's graphs and capture
+   seconds, syncs per frame, K1 launches per frame by mode (the graphed
+   side's counted from replays, equal to eager's), peak device memory of
+   each side and the graph pool's bytes; only the graphed frames'
+   launches join the kernels line, the eager control's are logged apart.
+   (10c) one graphed and one eager dragons_equiv frame under
+   torch.profiler: device busy, idle share, the host's cudaGraphLaunch
+   and cudaLaunchKernel calls, and the device events of K1's walk (by
+   template) and of K1b, which must equal the launch counters' deltas
+   over the same frame.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object with the kernels' numbers (launches: the main-path runs
-of phases 5 to 9), and
+of phases 5 to 10), and
 the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
@@ -419,10 +445,13 @@ def live_work(mc, call):
                                    call["bb"][1], call["t_init"])[1].sum())
 
 
-def profile_run(fn, s_unprofiled):
+def profile_run(fn, s_unprofiled, count_kernels=()):
     """One call of ``fn`` under torch.profiler: device busy time (the sum
     of the device-side kernel events), its idle share against the
-    un-profiled time of the same call, and the top kernels."""
+    un-profiled time of the same call, the top kernels, the host's CUDA
+    runtime calls by name (``cudaLaunchKernel``, ``cudaGraphLaunch``,
+    copies, syncs), and the device events of each kernel whose name holds
+    a string of ``count_kernels`` (``kernel_events``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -440,6 +469,9 @@ def profile_run(fn, s_unprofiled):
             and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kern)
     kern.sort(key=lambda e: -e.self_device_time_total)
+    host_api = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith("cuda")}
     return dict(
         profiled_wall_s=wall, device_busy_s=busy_us / 1e6 if kern else None,
         device_idle_share=(1 - busy_us / 1e6 / s_unprofiled) if kern
@@ -447,6 +479,11 @@ def profile_run(fn, s_unprofiled):
         n_device_ops=sum(e.count for e in kern),
         top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
                   count=e.count) for e in kern[:8]],
+        host_api=host_api,
+        host_launches=sum(host_api.get(k, 0) for k in (
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")),
+        kernel_events={s: sum(e.count for e in kern if s in e.key)
+                       for s in count_kernels},
     )
 
 
@@ -529,8 +566,8 @@ def k1_numbers(mc, call, reps):
 
 
 def frame(scene, cam, label, out_dir, mc):
-    """Warm-up + median of 3 frames of render(); returns (numbers, the
-    last u8 frame)."""
+    """Warm-up + median of 3 frames of render() (its default: the tile
+    program's CUDA graphs); returns (numbers, the last u8 frame)."""
     import numpy as np
     import torch
 
@@ -557,6 +594,7 @@ def frame(scene, cam, label, out_dir, mc):
     res = dict(s_per_frame=s, px_per_s=cam.hsize * cam.vsize / s,
                frame_times_s=times, k1_launches_per_frame=per_frame,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
+               max_memory_reserved=torch.cuda.max_memory_reserved(),
                triangles=scene.static.counts[5],
                resolution=f"{cam.hsize}x{cam.vsize}",
                mean_u8=float(img.mean()))
@@ -1132,10 +1170,10 @@ def packed_levels(scene, cam, label):
     levels = []
     real = R._packed_shade_level
 
-    def spy(scene_, o, d, w, generator=None, **kw):
+    def spy(scene_, o, d, w, jitter=None, **kw):
         levels.append(dict(o=o.detach().clone(), d=d.detach().clone(),
                            w=w.detach().clone(), **kw))
-        return real(scene_, o, d, w, generator, **kw)
+        return real(scene_, o, d, w, jitter, **kw)
 
     tile = min(R.pick_tile_rays(scene.static), cam.hsize * cam.vsize)
     _, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, scene.device)
@@ -1197,25 +1235,37 @@ def level2_timing(scene, label, res, levels):
     return res
 
 
+def variant_scene(scene):
+    """A second Scene object on the same tables. Tile programs live on the
+    scene object, so a variant of a patched module function (render.packs,
+    mat3_apply) is captured into CUDA graphs of its own, and each variant's
+    timed frames replay its own graphs."""
+    import dataclasses
+
+    return dataclasses.replace(scene)
+
+
 def packing_ab(scene, cam, label):
     """8a: whole frames with the packed levels off (render.packs forced
-    False) and on, in turns (off, on, on, off) after one warm-up frame
-    each; host clock to the u8 frame on the host. The frames must agree
-    (0.5% budget; packing is exact, so 0 pixels are expected)."""
+    False, on a variant_scene) and on, in turns (off, on, on, off) after
+    one warm-up frame each (graphed: render's default); host clock to the
+    u8 frame on the host. The frames must agree (0.5% budget; packing is
+    exact, so 0 pixels are expected)."""
     import numpy as np
 
     from raytracer_tpu_torch.core import render as R
 
     real = R.packs
+    scenes_ = {"packed": scene, "unpacked": variant_scene(scene)}
     times = {"packed": [], "unpacked": []}
     imgs = {}
     try:
         for mode in ("unpacked", "packed", "packed", "unpacked"):
             R.packs = real if mode == "packed" else (lambda st, r: False)
-            if mode not in imgs:
-                imgs[mode] = R.render(scene, cam, quantize=True)   # warm-up
+            if mode not in imgs:                                # warm-up
+                imgs[mode] = R.render(scenes_[mode], cam, quantize=True)
             t0 = time.perf_counter()
-            imgs[mode] = R.render(scene, cam, quantize=True)
+            imgs[mode] = R.render(scenes_[mode], cam, quantize=True)
             times[mode].append(time.perf_counter() - t0)
     finally:
         R.packs = real
@@ -1466,56 +1516,66 @@ FUZZ_AREA_SEEDS = range(3, 31, 3)     # 64x64 too: the packed levels run
 FUZZ_GRAD_SEED = 12    # a transparent mesh (behind mode) and an area light
 
 
-def fuzz_frames(mc, dev, goldens, rec):
-    """9: every fuzz case rendered on the card (``rec`` records its K1
-    calls with their outputs), each against its stored JAX image. Returns
-    the per-case numbers."""
+def fuzz_frames(mc, dev, goldens):
+    """9: every fuzz case rendered on the card through render's graphed
+    tile program, each against its stored JAX image. Returns (the
+    per-case numbers, the cases' (scene, camera, u8 frame)); the scenes'
+    programs are dropped after their frame (their graphs' memory)."""
     import numpy as np
 
     from raytracer_tpu_torch import scenes
     from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
 
     k1 = mc._wrapper
-    levels, packed = [], []
-    real_level, real_packed = R.shade_level, R._packed_shade_level
-
-    def level_spy(scene, o, *a, **kw):
-        levels.append(o.shape[0])
-        return real_level(scene, o, *a, **kw)
-
-    def packed_spy(*a, **kw):
-        packed.append(kw["width"])
-        return real_packed(*a, **kw)
-
     cases = ([(s, 64, 48) for s in FUZZ_SEEDS]
              + [(s, 64, 64) for s in FUZZ_AREA_SEEDS])
-    out = []
-    R.shade_level, R._packed_shade_level = level_spy, packed_spy
-    try:
-        for seed, h, v in cases:
-            before = dict(k1.launches_by_mode)
-            n_calls, n_levels, n_packed = len(rec.calls), len(levels), len(
-                packed)
-            img = R.render(scenes.random_scene(seed, device=dev),
-                           scenes.fuzz_camera(h, v), quantize=True)
-            want = goldens[f"s{seed}_{h}x{v}"]
-            if img.shape != want.shape:
-                raise AssertionError(f"fuzz seed {seed} {h}x{v}: frame "
-                                     f"{img.shape}, JAX {want.shape}")
-            diff = np.abs(img.astype(int) - want.astype(int)).max(-1)
-            res = dict(seed=seed, size=f"{h}x{v}",
-                       share_over_1_step=float((diff > 1).mean()),
-                       max_step=int(diff.max()),
-                       k1={k: k1.launches_by_mode[k] - before[k]
-                           for k in before},
-                       k1_calls_recorded=len(rec.calls) - n_calls,
-                       level_widths=levels[n_levels:],
-                       packed_widths=packed[n_packed:])
-            log(f"  [9] seed {seed:>2} {h}x{v}: {json.dumps(res)}")
-            out.append(res)
-    finally:
-        R.shade_level, R._packed_shade_level = real_level, real_packed
-    return out
+    out, kept = [], []
+    for seed, h, v in cases:
+        before = dict(k1.launches_by_mode)
+        scene, cam = scenes.random_scene(seed, device=dev), \
+            scenes.fuzz_camera(h, v)
+        img = R.render(scene, cam, quantize=True)
+        levels = TP.program_of(scene).levels
+        TP.drop_program(scene)
+        want = goldens[f"s{seed}_{h}x{v}"]
+        if img.shape != want.shape:
+            raise AssertionError(f"fuzz seed {seed} {h}x{v}: frame "
+                                 f"{img.shape}, JAX {want.shape}")
+        diff = np.abs(img.astype(int) - want.astype(int)).max(-1)
+        res = dict(seed=seed, size=f"{h}x{v}",
+                   share_over_1_step=float((diff > 1).mean()),
+                   max_step=int(diff.max()),
+                   k1={k: k1.launches_by_mode[k] - before[k]
+                       for k in before},
+                   level_widths=[r if w is None else w
+                                 for _, r, w in levels],
+                   packed_widths=[w for _, _, w in levels if w is not None])
+        log(f"  [9] seed {seed:>2} {h}x{v}: {json.dumps(res)}")
+        out.append(res)
+        kept.append((scene, cam, img))
+    return out, kept
+
+
+def fuzz_eager(mc, kept):
+    """9, after the main path's counts are read: each fuzz frame again
+    through the eager loop (graphs=False) with its K1 calls recorded; the
+    u8 frames must equal the graphed ones bit for bit. Returns the
+    recorded calls."""
+    import numpy as np
+
+    from raytracer_tpu_torch.core import render as R
+
+    differ = []
+    with Recorder(mc, outputs=True) as rec:
+        for scene, cam, img in kept:
+            eager = R.render(scene, cam, quantize=True, graphs=False)
+            differ.append(int((eager != img).any(-1).sum()))
+    log(f"  [9] graphed fuzz frames vs eager, pixels differing: {differ}")
+    if any(differ):
+        raise AssertionError(f"graphed fuzz frames differ from eager: "
+                             f"{differ}")
+    return rec.calls
 
 
 def fma_check(dev):
@@ -1555,9 +1615,10 @@ def mat3_ab(dev, glass, g_cam):
     against fused (the repair) on the card. CUDA-event times at the
     frame's shapes (the object-space rays of a tile against 5 primitives,
     and per-ray transforms), then flagship and glass_mesh frames in turns
-    (unfused, fused, fused, unfused, after a warm-up frame each), one more
-    frame of each under torch.profiler for its device busy time, and the
-    pixels where the two frames differ."""
+    (unfused, fused, fused, unfused, after a warm-up frame each; graphed,
+    the unfused frames on a variant_scene), one more frame of each under
+    torch.profiler for its device busy time, and the pixels where the two
+    frames differ."""
     import numpy as np
     import torch
 
@@ -1588,20 +1649,21 @@ def mat3_ab(dev, glass, g_cam):
         for label, scene, cam in (
                 ("flagship", build_scene(f_items, device=dev), f_cam),
                 ("glass_mesh", glass, g_cam)):
+            scenes_ = {"fused": scene, "unfused": variant_scene(scene)}
             times = {k: [] for k in fns}
             imgs = {}
             for mode in ("unfused", "fused", "fused", "unfused"):
                 use(mode)
                 if mode not in imgs:
-                    imgs[mode] = render(scene, cam, quantize=True)
+                    imgs[mode] = render(scenes_[mode], cam, quantize=True)
                 t0 = time.perf_counter()
-                imgs[mode] = render(scene, cam, quantize=True)
+                imgs[mode] = render(scenes_[mode], cam, quantize=True)
                 times[mode].append(time.perf_counter() - t0)
             res = dict(frame_s=times, device_busy_s={})
             for mode in fns:
                 use(mode)
                 res["device_busy_s"][mode] = profile_run(
-                    lambda: render(scene, cam, quantize=True),
+                    lambda: render(scenes_[mode], cam, quantize=True),
                     statistics.median(times[mode]))["device_busy_s"]
             res["fused_over_unfused"] = (statistics.median(times["fused"])
                                          / statistics.median(times["unfused"]))
@@ -1666,14 +1728,15 @@ def fuzz_phase(mc, dev):
         f"{goldens['numpy_version']}")
     fma = fma_check(dev)
     mc.reset_launches()
-    with Recorder(mc, outputs=True) as rec:
-        cases = fuzz_frames(mc, dev, goldens, rec)
+    cases, kept = fuzz_frames(mc, dev, goldens)
     grad = fuzz_grad(mc, dev)
     out = dict(launches=mc._wrapper.launches,
                by_mode=dict(mc._wrapper.launches_by_mode),
                pre_launches=mc.live_supergroups.launches)
     log(f"  K1 launches on phase 9's path: {out['launches']} "
         f"{out['by_mode']}; K1b launches: {out['pre_launches']}")
+    calls = fuzz_eager(mc, kept)
+    del kept
 
     over = [c for c in cases if c["share_over_1_step"] > 0.005]
     if over:
@@ -1696,7 +1759,7 @@ def fuzz_phase(mc, dev):
                                  f"{c['k1']}, wanted modes {sorted(want)}")
 
     max_err = pre_err = 0.0
-    for i, call in enumerate(rec.calls):
+    for i, call in enumerate(calls):
         label = f"[9] fuzz K1 call {i}"
         max_err = max(max_err, compare_to_plain(mc, call, call["k"], label))
         pre_err = max(pre_err, check_prepass(mc, call, label))
@@ -1705,7 +1768,7 @@ def fuzz_phase(mc, dev):
     worst = max(cases, key=lambda c: c["share_over_1_step"])
     out.update(
         cases=cases, grad=grad, mat3_apply_differing=fma,
-        k1_calls_checked=len(rec.calls),
+        k1_calls_checked=len(calls),
         max_err=max_err, pre_err=pre_err,
         worst=dict(seed=worst["seed"], size=worst["size"],
                    share_over_1_step=worst["share_over_1_step"]),
@@ -1715,9 +1778,243 @@ def fuzz_phase(mc, dev):
         seconds=time.perf_counter() - t0)
     log(f"  [9] {len(cases)} frames within the budget; worst "
         f"{json.dumps(out['worst'])}; seeds with a pixel over one step: "
-        f"{out['seeds_with_a_pixel_over_1_step']}; {len(rec.calls)} K1 calls "
+        f"{out['seeds_with_a_pixel_over_1_step']}; {len(calls)} K1 calls "
         f"against plain, max |dt| {max_err}, pre-pass {pre_err}; "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+# phase 10: the compiled frame
+COMPILED_CELLS = ("dragons_equiv", "glass_mesh", "flagship",
+                  "cli_csg_area_light", "cli_soft_glass")
+
+
+def perturbed(call, seed):
+    """A K1 call's inputs with fresh rays: origins moved and directions
+    turned by a little noise (directions renormalised), the cap kept."""
+    import torch
+
+    g = torch.Generator(device=call["o"].device).manual_seed(seed)
+    o = call["o"] + 0.01 * torch.randn(call["o"].shape, generator=g,
+                                       device=g.device)
+    d = call["d"] + 0.02 * torch.randn(call["d"].shape, generator=g,
+                                       device=g.device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return dict(call, o=o.contiguous(), d=d.contiguous())
+
+
+def captured_alone(mc, call):
+    """10a: one K1 call and its K1b pre-pass, each captured alone in a
+    CUDA graph on static input buffers, replayed on two fresh inputs
+    copied into those buffers: K1 against the plain version (phase 2's
+    tolerances), K1b exactly against its torch version. Returns the
+    largest |dt| and the largest K1b difference."""
+    import torch
+
+    o, d = call["o"].clone(), call["d"].clone()
+    cap = None if call["t_init"] is None else call["t_init"].clone()
+    kw = dict(t_init=cap, any_hit=call["any_hit"], reverse=call["reverse"])
+    inv = mc.inverse_dirs(-d if call["reverse"] else d).contiguous()
+    bb_super = call["bb"][1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up
+        mc.mesh_nearest(o, d, call["planes"], call["bb"], **kw)
+        mc.live_supergroups(o, inv, bb_super, cap)
+    torch.cuda.current_stream().wait_stream(side)
+    before = mc.launch_counts()
+    g_k1, g_pre = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g_k1):
+        k1_out = mc.mesh_nearest(o, d, call["planes"], call["bb"], **kw)
+    with torch.cuda.graph(g_pre):
+        pre_out = mc.live_supergroups(o, inv, bb_super, cap)
+    mc.add_launches({k: v - before[k] for k, v in mc.launch_counts().items()},
+                    -1)
+    max_err = pre_err = 0.0
+    for seed in (1, 2):
+        fresh = perturbed(call, seed)
+        o.copy_(fresh["o"])
+        d.copy_(fresh["d"])
+        inv.copy_(mc.inverse_dirs(-d if call["reverse"] else d))
+        g_k1.replay()
+        g_pre.replay()
+        k = [x.cpu().numpy() for x in k1_out]
+        max_err = max(max_err, compare_to_plain(
+            mc, fresh, k, f"[10a] K1 {mode_of(call)} graph replay {seed}"))
+        p = mc.live_supergroups_plain(o, inv, bb_super, cap)
+        differ = {name: int((x != y).sum())
+                  for name, x, y in zip(("ids", "cnt", "ent"), pre_out, p)}
+        log(f"  [10a] K1b graph replay {seed} vs torch, entries differing: "
+            f"{json.dumps(differ)}")
+        if any(differ.values()):
+            raise AssertionError(f"K1b replay differs from its torch "
+                                 f"version: {differ}")
+        pre_err = max(pre_err, *map(float, differ.values()))
+    return max_err, pre_err
+
+
+def graph_pool_bytes(prog):
+    """Bytes of the device segments in the program's graph memory pool."""
+    import torch
+
+    pool = tuple(prog.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def compiled_cell(mc, label, scene, cam):
+    """10b: one cell's frames through the graphed tile program and through
+    the eager loop (graphs=False), in turns after a warm-up of each:
+    3 pairs of u8 frames (graphed first, eager first, graphed first) and
+    one pair of f32 frames, every pair bit-equal. s/frame of each side,
+    the program's graphs and capture seconds (since it was made), syncs
+    per frame (the live-count reads, which the eager loop makes too, and
+    the frame's one copy to the host), K1 launches per frame by mode
+    (graphed: as replays count them; must equal eager's), peak device
+    memory of each side and the program's graph pool. Every render call
+    reads the launch counters before and after it: ``launches`` holds each
+    side's totals over all its frames (warm-up included), kept apart, so
+    that only the graphed side's join the kernels line."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
+
+    launches = {g: dict.fromkeys(mc.launch_counts(), 0)
+                for g in ("graphed", "eager")}
+
+    def run(graphs, quantize=True):
+        torch.cuda.synchronize()
+        before = mc.launch_counts()
+        t0 = time.perf_counter()
+        img = R.render(scene, cam, quantize=quantize, graphs=graphs)
+        sec = time.perf_counter() - t0
+        side = launches["graphed" if graphs else "eager"]
+        for k, v in mc.launch_counts().items():
+            side[k] += v - before[k]
+        return img, sec
+
+    t0 = time.perf_counter()
+    run(True)                                 # warm-up (captures, if new)
+    warm_graphed_s = time.perf_counter() - t0
+    run(False)
+    prog = TP.program_of(scene)
+    res = {"graphed": dict(s=[], k1={}, peak_allocated=0),
+           "eager": dict(s=[], k1={}, peak_allocated=0)}
+    syncs0 = prog.stats["syncs"]
+    frames = {}
+    for graphs_first in (True, False, True):
+        for graphs in ((True, False) if graphs_first else (False, True)):
+            side = res["graphed" if graphs else "eager"]
+            before = dict(mc.mesh_nearest.launches_by_mode)
+            torch.cuda.reset_peak_memory_stats()
+            img, sec = run(graphs)
+            side["s"].append(sec)
+            side["peak_allocated"] = max(side["peak_allocated"],
+                                         torch.cuda.max_memory_allocated())
+            for k in before:
+                side["k1"][k] = side["k1"].get(k, 0) + (
+                    mc.mesh_nearest.launches_by_mode[k] - before[k])
+            frames.setdefault(graphs, []).append(img)
+    live_reads = (prog.stats["syncs"] - syncs0) / 3
+    u8_differ = [int((a != b).any(-1).sum())
+                 for a, b in zip(frames[True], frames[False])]
+    f32 = {g: run(g, quantize=False)[0] for g in (True, False)}
+    f32_differ = int((f32[True] != f32[False]).any(-1).sum())
+    for side in res.values():
+        side["k1"] = {k: v / 3 for k, v in side["k1"].items()}
+        side["s_per_frame"] = statistics.median(side["s"])
+    res.update(
+        u8_pixels_differing=u8_differ, f32_pixels_differing=f32_differ,
+        graphs=len(prog.graphs), graphs_captured=prog.stats["captured"],
+        capture_s=prog.stats["capture_s"], warm_graphed_s=warm_graphed_s,
+        live_reads_per_frame=live_reads, syncs_per_frame=live_reads + 1,
+        tiles=-(-cam.hsize * cam.vsize // prog.tile), launches=launches,
+        graph_pool_bytes=graph_pool_bytes(prog),
+        graphed_over_eager=res["graphed"]["s_per_frame"]
+        / res["eager"]["s_per_frame"])
+    log(f"  [10b] {label}: {json.dumps(res)}")
+    if any(u8_differ) or f32_differ:
+        raise AssertionError(f"{label}: graphed frames differ from eager: "
+                             f"u8 {u8_differ}, f32 {f32_differ}")
+    if res["graphed"]["k1"] != res["eager"]["k1"]:
+        raise AssertionError(f"{label}: K1 launches per frame, graphed "
+                             f"{res['graphed']['k1']} vs eager "
+                             f"{res['eager']['k1']}")
+    return res
+
+
+# K1's and K1b's device kernels as the profiler names them, and the
+# launch counters they stand for: mesh_walk_kernel<true> is the any-hit
+# walk, <false> the nearest and behind walks
+PROFILED_KERNELS = {"mesh_walk_kernel<false>": ("nearest", "behind"),
+                    "mesh_walk_kernel<true>": ("any_hit",),
+                    "live_supergroups_kernel": ("prepass",)}
+
+
+def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
+    """10c: one dragons_equiv frame under torch.profiler (after the
+    phase's counts are read): device busy, idle share and the host's
+    runtime calls, and the profiler's device events of K1's and K1b's
+    kernels against the launch counters' deltas over the same frame
+    (graphed: as replays count them), which must be equal."""
+    from raytracer_tpu_torch.core import render as R
+
+    before = mc.launch_counts()
+    prof = profile_run(
+        lambda: R.render(scene, cam, quantize=True, graphs=graphs),
+        s_unprofiled, count_kernels=tuple(PROFILED_KERNELS))
+    counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
+    prof["counted"] = {name: sum(counted[k] for k in keys)
+                       for name, keys in PROFILED_KERNELS.items()}
+    if prof["kernel_events"] != prof["counted"]:
+        raise AssertionError(
+            f"dragons_equiv {'graphed' if graphs else 'eager'} frame: the "
+            f"profiler's kernel events {prof['kernel_events']} differ from "
+            f"the launch counters {prof['counted']}")
+    return prof
+
+
+def compiled_phase(mc, d_calls, cells):
+    """Phase 10, the compiled frame: 10a K1 and K1b captured alone (before
+    the counters are zeroed), then the five cells graphed against eager
+    (counters zeroed just before, read just after; the kernels line takes
+    the graphed frames' launches only, the eager control's are logged
+    apart), then one graphed and one eager dragons frame under
+    torch.profiler."""
+    log("[10] the compiled frame")
+    call = next(c for c in d_calls if mode_of(c) == "nearest")
+    out = {}
+    out["alone_max_err"], out["alone_pre_err"] = captured_alone(mc, call)
+    log("  (K1 launch counters zeroed)")
+    mc.reset_launches()
+    out["cells"] = {label: compiled_cell(mc, label, scene, cam)
+                    for label, (scene, cam) in cells.items()}
+    read = mc.launch_counts()
+    sides = {g: {k: sum(c["launches"][g][k] for c in out["cells"].values())
+                 for k in read} for g in ("graphed", "eager")}
+    if {k: sides["graphed"][k] + sides["eager"][k] for k in read} != read:
+        raise AssertionError(f"phase 10's counts {read} are not the sum of "
+                             f"its frames' {sides}")
+    graphed = sides["graphed"]
+    out["launches"] = graphed["k1"]
+    out["by_mode"] = {k: graphed[k] for k in mc.mesh_nearest.launches_by_mode}
+    out["pre_launches"] = graphed["prepass"]
+    out["eager_control_launches"] = sides["eager"]
+    log(f"  K1 launches of phase 10's graphed frames: {out['launches']} "
+        f"{out['by_mode']}; K1b launches: {out['pre_launches']}; the eager "
+        f"control's, kept out of the kernels line: {sides['eager']}")
+    if out["launches"] == 0:
+        raise AssertionError("phase 10 launched no K1")
+    scene, cam = cells["dragons_equiv"]
+    out["profile"] = {}
+    for graphs in (True, False):
+        side = "graphed" if graphs else "eager"
+        out["profile"][side] = profiled_vs_counted(
+            mc, scene, cam, graphs,
+            out["cells"]["dragons_equiv"][side]["s_per_frame"])
+    log(f"  [10c] one dragons_equiv frame under torch.profiler, graphed and "
+        f"eager: {json.dumps(out['profile'])}")
     return out
 
 
@@ -1745,6 +2042,7 @@ def main(argv=None):
     from raytracer_tpu_torch.mesh_cases import TIE_INDEX
     from raytracer_tpu_torch.ops import mesh_cuda as MC
     from raytracer_tpu_torch.scene import build_scene, specs as S
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1753,6 +2051,13 @@ def main(argv=None):
     LOG.append(open(out_dir / "chip_smoke.log", "w"))
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def lap(done):
+        """Seconds since the last lap, logged under phase ``done``."""
+        now = time.perf_counter()
+        phase_s[done] = now - (t_start + sum(phase_s.values()))
+        log(f"  (phase {done} took {phase_s[done]:.1f} s)")
 
     # -- 1. device + build ------------------------------------------------
     smi = smi_line()
@@ -1764,6 +2069,8 @@ def main(argv=None):
     for line in build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "error")):
             log("  ptxas:", line.strip())
+
+    lap(1)
 
     # -- 2. kernel vs plain -------------------------------------------------
     log("[2] K1 kernel vs plain on the card")
@@ -1815,6 +2122,8 @@ def main(argv=None):
     if modes != {"nearest", "any_hit", "behind"}:
         raise AssertionError(f"recorded tiles cover modes {modes}")
 
+    lap(2)
+
     # -- 3. oracle ----------------------------------------------------------
     world = build_scene([
         S.PointLight(position=(-10.0, 10.0, -10.0)),
@@ -1830,6 +2139,8 @@ def main(argv=None):
         raise AssertionError(f"default-world oracle: {got}")
     log(f"[3] default-world oracle ok: {got.tolist()}")
 
+    lap(3)
+
     # -- 4. device vs host --------------------------------------------------
     items4, cam4 = scenes.glass_mesh(instances=4, hsize=96, vsize=54)
     img_gpu = render(build_scene(items4, device=dev), cam4, quantize=True)
@@ -1840,6 +2151,8 @@ def main(argv=None):
         f"pixels differ, {frac:.4%} by more than 1 step, max {diff.max()}")
     if frac > 0.005:
         raise AssertionError(f"cuda vs cpu: {frac:.4%} of pixels > 1 step")
+
+    lap(4)
 
     # -- 5. full width: the main path ---------------------------------------
     log("[5] full-width frames (K1 launch counters zeroed)")
@@ -1876,6 +2189,8 @@ def main(argv=None):
                        results["dragons_equiv"]["s_per_frame"])
     log(f"  dragons_equiv frame under torch.profiler: {json.dumps(prof)}")
 
+    lap(5)
+
     # -- 6. the CLI path ----------------------------------------------------
     cli = cli_phase(MC, dev, out_dir, dragons, dragons_img)
     results.update(cli["frames"])
@@ -1886,6 +2201,8 @@ def main(argv=None):
     max_err, pre_err = max(max_err, cli["max_err"]), max(pre_err,
                                                          cli["pre_err"])
 
+    lap(6)
+
     # -- 7. the differentiable path -----------------------------------------
     grad = grad_phase(MC, dev, out_dir, dragons)
     runs = grad.pop("runs")
@@ -1894,12 +2211,16 @@ def main(argv=None):
     max_err = max(max_err, grad["max_err"])
     by_mode = {k: by_mode[k] + grad["by_mode"][k] for k in by_mode}
 
+    lap(7)
+
     # -- 8. packed levels, resumable and sharded rendering, examples ------
     p8 = phase8(MC, dev, out_dir, dragons, d_cam, glass, g_cam, dragons_img,
                 runs)
     launches += p8.pop("launches")
     pre_launches += p8.pop("pre_launches")
     by_mode = {k: by_mode[k] + p8["by_mode"][k] for k in by_mode}
+
+    lap(8)
 
     # -- 9. the differential fuzz ---------------------------------------
     fuzz = fuzz_phase(MC, dev)
@@ -1911,6 +2232,26 @@ def main(argv=None):
     by_mode = {k: by_mode[k] + fuzz["by_mode"][k] for k in by_mode}
     max_err, pre_err = max(max_err, fuzz["max_err"]), max(pre_err,
                                                           fuzz["pre_err"])
+    lap(9)
+
+    # -- 10. the compiled frame --------------------------------------------
+    cells = {"dragons_equiv": (dragons, d_cam), "glass_mesh": (glass, g_cam),
+             "flagship": (build_scene(f_items, device=dev), f_cam)}
+    for label, text, objs in (
+            ("cli_csg_area_light", scenes.CSG_AREA_YAML, []),
+            ("cli_soft_glass", scenes.SOFT_GLASS_YAML,
+             [str(out_dir / "teapot.obj")])):
+        cam, sc = parse_scene(text, obj_files=objs, device=dev)
+        cells[label] = (sc, cam)
+    p10 = compiled_phase(MC, d_calls, cells)
+    del cells
+    launches += p10.pop("launches")
+    pre_launches += p10.pop("pre_launches")
+    by_mode = {k: by_mode[k] + p10["by_mode"][k] for k in by_mode}
+    max_err = max(max_err, p10["alone_max_err"])
+    pre_err = max(pre_err, p10["alone_pre_err"])
+
+    lap(10)
     main_k1 = timing["dragons:nearest"]
     kernels = [{
         "name": "mesh_nearest",
@@ -1941,7 +2282,7 @@ def main(argv=None):
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
-                   phase8=p8, fuzz=fuzz,
+                   phase8=p8, fuzz=fuzz, compiled=p10, phase_s=phase_s,
                    seconds=time.perf_counter() - t_start)
     (out_dir / "numbers.json").write_text(json.dumps(summary, indent=1))
     log(f"total {summary['seconds']:.1f} s")

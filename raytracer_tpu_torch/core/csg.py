@@ -9,7 +9,8 @@ trees recurse, a child node filtering its own hits first (csg.rs:26-49).
 Here in_l/in_r *before* hit j are parities of how many earlier (alive,
 in-subtree) hits were left/right hits. Processing nodes bottom-up with an
 "alive" mask reproduces the recursion exactly. The uint64 membership masks
-stay host-side numpy; only the ts table is a tensor. Ties in t break by
+stay host-side numpy; the column indices and per-node bit masks they give
+are tensors made once per scene (:func:`_root_plans`). Ties in t break by
 column index in both filters.
 """
 
@@ -42,35 +43,44 @@ def apply_csg(scene: T.Scene, ts, static_gids: np.ndarray, c_static: int):
     ``static_gids``) can belong to CSG trees. Returns the filtered ts (a
     new tensor; the input is not written).
     """
-    st = scene.static
-    if not st.csg_nodes:
+    if not scene.static.csg_nodes:
         return ts
-
-    member = {gid: (under, left) for gid, under, left in st.csg_members}
-    roots = sorted({root for _, _, root in st.csg_nodes})
-
-    for root in roots:
-        root_mask = 1 << root
-        cols = [
-            j for j in range(len(static_gids))
-            if member.get(int(static_gids[j]), (0, 0))[0] & root_mask
-        ]
-        if not cols:
-            continue
-        under_bits = np.array(
-            [member[int(static_gids[j])][0] for j in cols], np.uint64)
-        left_bits = np.array(
-            [member[int(static_gids[j])][1] for j in cols], np.uint64)
-        nodes = [n for n in st.csg_nodes if n[2] == root]
-
-        idx = torch.as_tensor(cols, device=ts.device)
+    for idx, pairwise, plan in _root_plans(scene, static_gids):
         sub = ts[:, idx]                                    # [R, Cr]
-        if len(cols) <= PAIRWISE_MAX_COLS:
-            new_sub = _filter_pairwise(sub, nodes, under_bits, left_bits)
-        else:
-            new_sub = _filter_sorted(sub, nodes, under_bits, left_bits)
+        new_sub = (_filter_pairwise if pairwise else _filter_sorted)(sub,
+                                                                     plan)
         ts = ts.index_copy(1, idx, new_sub)
     return ts
+
+
+def _root_plans(scene: T.Scene, static_gids: np.ndarray):
+    """Per CSG root with a column among ``static_gids``: (its columns as a
+    tensor, whether the pairwise filter takes them, its node plan), made
+    once per scene and column layout."""
+    def build():
+        st = scene.static
+        member = {gid: (under, left) for gid, under, left in st.csg_members}
+        plans = []
+        for root in sorted({root for _, _, root in st.csg_nodes}):
+            root_mask = 1 << root
+            cols = [
+                j for j in range(len(static_gids))
+                if member.get(int(static_gids[j]), (0, 0))[0] & root_mask
+            ]
+            if not cols:
+                continue
+            under_bits = np.array(
+                [member[int(static_gids[j])][0] for j in cols], np.uint64)
+            left_bits = np.array(
+                [member[int(static_gids[j])][1] for j in cols], np.uint64)
+            nodes = [n for n in st.csg_nodes if n[2] == root]
+            plans.append((torch.as_tensor(cols, device=scene.device),
+                          len(cols) <= PAIRWISE_MAX_COLS,
+                          _node_plan(nodes, under_bits, left_bits,
+                                     scene.device)))
+        return plans
+
+    return scene.const(("csg", static_gids.tobytes()), build)
 
 
 def _node_bits(bits: np.ndarray, bit: int, device):
@@ -79,10 +89,19 @@ def _node_bits(bits: np.ndarray, bit: int, device):
                            .astype(bool), device=device)
 
 
-def _filter_pairwise(sub, nodes, under_bits, left_bits):
+def _node_plan(nodes, under_bits, left_bits, device):
+    """(op code, under-node mask [Cr], left-child mask [Cr]) per node, in
+    the bottom-up order of ``nodes``: what the filters read."""
+    return [(op_code, _node_bits(under_bits, bit, device),
+             _node_bits(left_bits, bit, device))
+            for op_code, bit, _ in nodes]
+
+
+def _filter_pairwise(sub, plan):
     """Sortless node loop: the count of earlier hits from pairwise
     lexicographic (t, column) comparisons, two [R, Cr, Cr] reductions per
-    node (ties break by column index, as the stable sort does)."""
+    node (ties break by column index, as the stable sort does). ``plan``:
+    :func:`_node_plan`."""
     c = sub.shape[-1]
     dev = sub.device
     alive = torch.isfinite(sub)
@@ -91,9 +110,8 @@ def _filter_pairwise(sub, nodes, under_bits, left_bits):
     earlier = (sub[:, :, None] < sub[:, None, :]) | (
         (sub[:, :, None] == sub[:, None, :]) & tie[None])
 
-    for op_code, bit, _ in nodes:
-        under_n = _node_bits(under_bits, bit, dev)[None]
-        l_hit = _node_bits(left_bits, bit, dev)[None]
+    for op_code, under_n, l_hit in plan:
+        under_n, l_hit = under_n[None], l_hit[None]
         relevant = under_n & alive                          # [R, Cr]
         inc_l = relevant & l_hit
         inc_r = relevant & ~l_hit
@@ -105,16 +123,14 @@ def _filter_pairwise(sub, nodes, under_bits, left_bits):
     return torch.where(alive, sub, float("inf"))
 
 
-def _filter_sorted(sub, nodes, under_bits, left_bits):
+def _filter_sorted(sub, plan):
     """Stable argsort + exclusive prefix parity (the wide-tree path)."""
-    dev = sub.device
     order = torch.argsort(sub, dim=-1, stable=True)
     sub_sorted = torch.gather(sub, -1, order)
     alive = torch.isfinite(sub_sorted)
 
-    for op_code, bit, _ in nodes:
-        under_n = _node_bits(under_bits, bit, dev)[order]
-        l_hit = _node_bits(left_bits, bit, dev)[order]
+    for op_code, under_n, l_hit in plan:
+        under_n, l_hit = under_n[order], l_hit[order]
         relevant = under_n & alive
         inc_l = (relevant & l_hit).to(torch.int32)
         inc_r = (relevant & ~l_hit).to(torch.int32)

@@ -259,6 +259,38 @@ def _tri_moller_trumbore(o, d, p1, e1, e2, det_eps=None):
     return torch.where(ok, t, INF), u, v
 
 
+_QUADRIC_SLOTS = (("sphere", 2), ("plane", 1), ("cube", 2),
+                  ("cylinder", 4), ("cone", 4))
+
+
+def static_columns(scene: T.Scene, kind: str):
+    """Gid of each static candidate column, as (np.int32 [C], the same as
+    an int32 tensor on the scene's device), made once per scene. ``kind``
+    "hits": :func:`_static_hits`' table, the quadric families' slots then
+    the CSG triangles (one zero column when there is neither). "shadow":
+    :func:`shadow_blocked`'s, the quadric slots (one zero column when there
+    are none), then the CSG triangles when the scene has a CSG tree."""
+    def build():
+        st = scene.static
+        quad = np.concatenate(
+            [np.repeat(np.arange(off, off + n, dtype=np.int32), slots)
+             for off, n, slots in ((*st.family_range(name), slots)
+                                   for name, slots in _QUADRIC_SLOTS)])
+        tri_off = sum(st.counts[:5])
+        tris = np.arange(tri_off, tri_off + st.n_csg_tris, dtype=np.int32)
+        zero = np.zeros(1, np.int32)
+        if kind == "hits":
+            gids = np.concatenate([quad, tris])
+            gids = gids if len(gids) else zero
+        else:
+            gids = quad if len(quad) else zero
+            if st.csg_nodes and len(tris):
+                gids = np.concatenate([gids, tris])
+        return gids, torch.as_tensor(gids, device=scene.device)
+
+    return scene.const(("columns", kind), build)
+
+
 def _static_hits(scene: T.Scene, origins, directions):
     """Candidate intersections of the statically laid-out region: quadric
     families (fixed slots per primitive), then dense CSG triangles, with
@@ -269,7 +301,7 @@ def _static_hits(scene: T.Scene, origins, directions):
     r = origins.shape[0]
     dev = origins.device
 
-    ts_list, gid_cols = [], []
+    ts_list = []
 
     def fam(name, n, fn, slots, extra=()):
         if n == 0:
@@ -279,8 +311,6 @@ def _static_hits(scene: T.Scene, origins, directions):
                                origins, directions)
         ts = fn(o_l, d_l, *extra)                  # [R, n, slots]
         ts_list.append(ts.reshape(r, n * slots))
-        gid_cols.append(np.repeat(np.arange(base, base + n, dtype=np.int32),
-                                  slots))
 
     fam("sphere", ns, _sphere_ts, 2)
     fam("plane", npl, _plane_ts, 1)
@@ -297,19 +327,16 @@ def _static_hits(scene: T.Scene, origins, directions):
         tts, tu, tv = _tri_moller_trumbore(
             origins, directions, scene.tri_p1[:ntc], scene.tri_e1[:ntc],
             scene.tri_e2[:ntc], det_eps=scene.tri_det_eps[:ntc])
-        tri_off = sum(st.counts[:5])
         ts_list.append(tts)
-        gid_cols.append(np.arange(tri_off, tri_off + ntc, dtype=np.int32))
         tri_uv = (tu, tv)
 
     if ts_list:
         ts = torch.cat(ts_list, -1)
-        static_gids = np.concatenate(gid_cols)
     else:
         ts = torch.full((r, 1), INF, device=dev)
-        static_gids = np.zeros(1, np.int32)
+    static_gids, gid_cols = static_columns(scene, "hits")
     c_static = ts.shape[-1]
-    gid = torch.as_tensor(static_gids, device=dev)[None, :].expand(r, -1)
+    gid = gid_cols[None, :].expand(r, -1)
     u = torch.zeros_like(ts)
     v = torch.zeros_like(ts)
     if tri_uv is not None:
@@ -332,7 +359,7 @@ def _pad_rays(origins, directions, t_cap):
     dev = origins.device
     origins = torch.cat([origins, torch.zeros((pad, 3), device=dev)])
     directions = torch.cat(
-        [directions, torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+        [directions, T.small_const((0.0, 0.0, 1.0), dev).expand(pad, 3)])
     if t_cap is not None:
         t_cap = torch.cat([t_cap, torch.full((pad,), INF, device=dev)])
     return origins, directions, t_cap
@@ -461,11 +488,12 @@ def _shadow_static_ts(scene: T.Scene, over, direction):
     receiver, with the receiver->object transform factored out of the
     sample axis.
 
-    over [R,3], direction [R,S,3] -> (ts [R,S,Cs], col_gid np.int32 [Cs]).
+    over [R,3], direction [R,S,3] -> ts [R,S,Cs], the columns of
+    ``static_columns(scene, "shadow")``.
     """
     st = scene.static
     r, s = direction.shape[0], direction.shape[1]
-    ts_list, gid_cols = [], []
+    ts_list = []
 
     def fam(name, fn, slots, extra=()):
         fi = T.FAMILIES.index(name)
@@ -479,7 +507,6 @@ def _shadow_static_ts(scene: T.Scene, over, direction):
         d_l = mat3_apply(rot, direction[:, :, None, :])          # [R,S,N,3]
         ts = fn(o_l[:, None], d_l, *extra)                 # [R,S,N,slots]
         ts_list.append(ts.reshape(r, s, n * slots))
-        gid_cols.append(np.repeat(np.arange(off, off + n, dtype=np.int32), slots))
 
     fam("sphere", _sphere_ts, 2)
     fam("plane", _plane_ts, 1)
@@ -492,9 +519,8 @@ def _shadow_static_ts(scene: T.Scene, over, direction):
                scene.cone_closed[None, None]))
 
     if not ts_list:
-        return (torch.full((r, s, 1), INF, device=over.device),
-                np.zeros(1, np.int32))
-    return torch.cat(ts_list, -1), np.concatenate(gid_cols)
+        return torch.full((r, s, 1), INF, device=over.device)
+    return torch.cat(ts_list, -1)
 
 
 def shadow_blocked(scene: T.Scene, over, pos, live=None):
@@ -516,9 +542,10 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
     if live is not None:
         direction = torch.where(
             live[:, None, None], direction,
-            torch.tensor([0.0, 0.0, 1.0], device=over.device))
+            T.small_const((0.0, 0.0, 1.0), over.device))
 
-    ts, col_gid = _shadow_static_ts(scene, over, direction)
+    ts = _shadow_static_ts(scene, over, direction)
+    col_gid, col_gid_t = static_columns(scene, "shadow")
     if st.csg_nodes:
         ntc = st.n_csg_tris
         if ntc:
@@ -531,9 +558,6 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
                 scene.tri_e1[:ntc], scene.tri_e2[:ntc],
                 det_eps=scene.tri_det_eps[:ntc])
             ts = torch.cat([ts, tts.reshape(r, s, ntc)], -1)
-            tri_off = sum(st.counts[:5])
-            col_gid = np.concatenate(
-                [col_gid, np.arange(tri_off, tri_off + ntc, dtype=np.int32)])
         c = ts.shape[-1]
         # the filter reads RAW ts (negative hits toggle containment), on
         # the flattened [R*S, C] table
@@ -546,8 +570,7 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
     t_s = select_col(masked, slot)                          # [R,S]
     # per-column shadow flags are static rows (triangle gids map through
     # their source row), broadcast over rays and samples
-    flag_cols = scene.shadow[
-        transform_row(scene, torch.as_tensor(col_gid, device=over.device))]
+    flag_cols = scene.shadow[transform_row(scene, col_gid_t)]
     flag_s = flag_cols[slot]
 
     if st.counts[5] - st.n_csg_tris > 0:
@@ -582,8 +605,7 @@ def candidate_meta(static: T.SceneStatic):
     columns each are their own object. Returns (obj_of_col int32 [C],
     siblings list[list[int]], c_static)."""
     cols = []
-    for name, slots in (("sphere", 2), ("plane", 1), ("cube", 2),
-                        ("cylinder", 4), ("cone", 4)):
+    for name, slots in _QUADRIC_SLOTS:
         off, n = static.family_range(name)
         for g in range(off, off + n):
             cols.extend([g] * slots)

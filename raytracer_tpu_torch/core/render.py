@@ -23,7 +23,8 @@ Random jitter. Without a deterministic sequence, every area light of every
 level of every tile draws ``torch.rand((R, S, 4))`` from ONE
 ``torch.Generator`` on the scene's device: tiles in order, within a tile
 the levels in order (a level that does not run draws nothing), within a
-level the area lights in order. ``render`` and ``color_at`` take
+level the area lights in order, all before the level's shading
+(:func:`draw_jitter`). ``render`` and ``color_at`` take
 ``generator=None``, which means a generator seeded with 0 (the JAX
 package's default is ``PRNGKey(0)``). The stream is not JAX's threefry,
 and torch's CPU and CUDA generators give different streams for one seed,
@@ -36,6 +37,14 @@ shades only the narrowest of R/16, R/4, R/2 or R rows that holds them
 (:func:`_packed_shade_level`, the JAX package's rule and widths). The width
 is a host decision, read in the same sync as the whole-level skip; the JAX
 package's ``lax.cond`` chain takes that place there.
+
+The compiled frame. ``render`` runs each tile through
+``core/tile_program.TileProgram``, the counterpart of the JAX package's
+``_tile_color_jit``/``_render_frame_jit``: the level steps below
+(:func:`shade_step`, :func:`accumulate`, :func:`spawn_step`,
+:func:`finish_step`), each (level, width) captured once as a CUDA graph
+on the card and replayed. ``render(..., graphs=False)`` and
+:func:`color_at` run the same steps eagerly.
 
 Not ported: the JAX package's ``_max_mesh_tile`` clamp, which sizes tiles
 to the TPU's 1 MB of scalar memory; K1's pre-pass tables live in global
@@ -77,8 +86,8 @@ PARK_DIR = (0.0, 0.0, 1.0)
 
 
 def park_rays(o, d, active):
-    po = torch.tensor(PARK_ORIGIN, dtype=o.dtype, device=o.device)
-    pd = torch.tensor(PARK_DIR, dtype=d.dtype, device=d.device)
+    po = T.small_const(PARK_ORIGIN, o.device, o.dtype)
+    pd = T.small_const(PARK_DIR, d.device, d.dtype)
     return (
         torch.where(active[:, None], o, po),
         torch.where(active[:, None], d, pd),
@@ -109,34 +118,68 @@ def _det_jitter_tables(static: T.SceneStatic, s_total, phase=0):
     return tab(0), tab(1), tab(2 * s_total), tab(2 * s_total + 1)
 
 
+def _area_tables(scene, ai, phase):
+    """(uu [S], vv [S], the deterministic jitter tables [1, S] x 4 or
+    None) of area light ``ai``, made once per scene."""
+    st = scene.static
+
+    def build():
+        us, vs = st.area_steps[ai]
+        dev = scene.device
+        uu = torch.as_tensor(np.repeat(np.arange(us, dtype=np.float32), vs),
+                             device=dev)
+        vv = torch.as_tensor(np.tile(np.arange(vs, dtype=np.float32), us),
+                             device=dev)
+        det = None if st.jitter is None else tuple(
+            torch.as_tensor(x, device=dev)[None, :]
+            for x in _det_jitter_tables(st, us * vs, phase))
+        return uu, vv, det
+
+    return scene.const(("area", ai, phase), build)
+
+
+def draws_jitter(static: T.SceneStatic) -> bool:
+    """Whether the scene draws random area-light jitter."""
+    return bool(static.area_steps) and static.jitter is None
+
+
+def draw_jitter(scene, rows: int, generator, out=None):
+    """A level's random area-light jitter: one ``torch.rand((rows, S, 4))``
+    per area light, in light order, from ``generator`` (into ``out``'s
+    tensors when given). None when the scene draws none. Every level draws
+    here, before its shading, so the eager loop and the tile program
+    consume one stream in one order."""
+    if not draws_jitter(scene.static):
+        return None
+    if out is None:
+        return tuple(torch.rand((rows, us * vs, 4), generator=generator,
+                                device=scene.device)
+                     for us, vs in scene.static.area_steps)
+    for buf in out:
+        torch.rand(buf.shape, generator=generator, out=buf)
+    return out
+
+
 def _area_light_contrib(scene, ai, over, eyev, normalv, base_color, mat_rows,
-                        generator, live=None, jitter_phase=0):
+                        jitter, live=None, jitter_phase=0):
     """Shadow fraction + sampled Phong for area light ``ai``, all in
     [R, S] form: one shadow query of R x S rays through
     intersect.shadow_blocked (the mesh kernel sees one call of R*S rays),
-    and Phong broadcasting [R, 1, ...] rows against [R, S, 3] samples."""
+    and Phong broadcasting [R, 1, ...] rows against [R, S, 3] samples.
+    ``jitter``: this light's random draws [R, S, 4], or None in the
+    deterministic sequence mode."""
     st = scene.static
-    us, vs = st.area_steps[ai]
-    s_total = us * vs
+    s_total = st.area_steps[ai][0] * st.area_steps[ai][1]
     corner = scene.alight_corner[ai]
     uvec = scene.alight_uvec[ai]
     vvec = scene.alight_vvec[ai]
     intensity = scene.alight_intensity[ai]
-    r = over.shape[0]
-    dev = over.device
 
-    uu = torch.as_tensor(np.repeat(np.arange(us, dtype=np.float32), vs),
-                         device=dev)                                  # [S]
-    vv = torch.as_tensor(np.tile(np.arange(vs, dtype=np.float32), us),
-                         device=dev)
-    if st.jitter is not None:
-        ju1, jv1, ju2, jv2 = (
-            torch.as_tensor(x, device=dev)[None, :]
-            for x in _det_jitter_tables(st, s_total, jitter_phase)
-        )                                                             # [1, S]
+    uu, vv, det = _area_tables(scene, ai, jitter_phase)
+    if det is not None:
+        ju1, jv1, ju2, jv2 = det                                     # [1, S]
     else:
-        jj = torch.rand((r, s_total, 4), generator=generator, device=dev)
-        ju1, jv1, ju2, jv2 = jj[..., 0], jj[..., 1], jj[..., 2], jj[..., 3]
+        ju1, jv1, ju2, jv2 = (jitter[..., k] for k in range(4))      # [R, S]
 
     def positions(ju, jv):
         return (corner + (uu[None, :] + ju)[..., None] * uvec
@@ -164,15 +207,18 @@ def _seeded(generator, device):
     return generator
 
 
-def shade_level(scene: T.Scene, o, d, weight, generator=None):
-    """Trace + shade one wavefront level. ``generator`` draws the random
-    area-light jitter (see the module docstring); it may be None when the
-    scene has no area light or a deterministic jitter sequence.
+def shade_level(scene: T.Scene, o, d, weight, jitter=None):
+    """Trace + shade one wavefront level. ``jitter``: the level's random
+    area-light draws (:func:`draw_jitter`, [R, S, 4] per area light); None
+    when the scene draws none (see the module docstring).
 
     Returns (weighted surface color [R,3], reflect spawn, refract spawn),
     each spawn = (origin, direction, child_weight).
     """
     st = scene.static
+    if jitter is None and draws_jitter(st):
+        raise ValueError("the scene draws random area-light jitter: pass "
+                         "the level's draws (render.draw_jitter)")
     if st.has_transparency and not st.all_ri_one:
         # the n1/n2 container walk needs the whole candidate table
         ts, gids, us, vs = I.candidate_hits(scene, o, d)
@@ -229,7 +275,8 @@ def shade_level(scene: T.Scene, o, d, weight, generator=None):
     for ai, (us, vs) in enumerate(st.area_steps):
         surface = surface + _area_light_contrib(
             scene, ai, over_sh, eyev, normalv, base_color, mat_rows,
-            generator, live=has, jitter_phase=jitter_phase,
+            None if jitter is None else jitter[ai], live=has,
+            jitter_phase=jitter_phase,
         )
         jitter_phase += 4 * us * vs
 
@@ -285,7 +332,7 @@ def _packed_width(r: int, n_live: int) -> int:
     return r
 
 
-def _packed_shade_level(scene: T.Scene, o, d, w, generator=None, *,
+def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
                         thread_perm=False, width):
     """:func:`shade_level` with the live rays (any weight > 0) moved to the
     front in a stable order and shaded at ``width`` rows, the narrowest of
@@ -293,7 +340,7 @@ def _packed_shade_level(scene: T.Scene, o, d, w, generator=None, *,
     count, which the caller has read). The rows past the live rays are
     parked padding. Each ray's result does not depend on its batch or its
     neighbours (K1's gates are conservative), so this is exact; the
-    area-light jitter is drawn at ``(width, S, 4)``, so a seeded frame
+    area-light ``jitter`` is drawn at ``(width, S, 4)``, so a seeded frame
     agrees with the full-width one in distribution.
 
     Returns shade_level's outputs at R rows, in the rays' own order; with
@@ -305,14 +352,14 @@ def _packed_shade_level(scene: T.Scene, o, d, w, generator=None, *,
     order = torch.argsort((~live).to(torch.uint8), stable=True)
     sel = order[:width]
     colored, refl, refr = shade_level(scene, o[sel], d[sel], w[sel],
-                                      generator)
+                                      jitter)
     out = [colored]
     for spawn in (refl, refr):
         out += list(spawn)
     if width < r:
         zero = torch.zeros(3, dtype=colored.dtype, device=o.device)
-        po = torch.tensor(PARK_ORIGIN, dtype=o.dtype, device=o.device)
-        pd = torch.tensor(PARK_DIR, dtype=d.dtype, device=d.device)
+        po = T.small_const(PARK_ORIGIN, o.device, o.dtype)
+        pd = T.small_const(PARK_DIR, d.device, d.dtype)
         fills = (zero, po, pd, zero, po, pd, zero)
         out = [torch.cat([x, f.expand(r - width, 3)]) for x, f in
                zip(out, fills)]
@@ -323,35 +370,6 @@ def _packed_shade_level(scene: T.Scene, o, d, w, generator=None, *,
     return res + (order,) if thread_perm else res
 
 
-def _remat(level_fn, scene, o, d, w, generator):
-    """``level_fn(scene, o, d, w, generator)`` under
-    ``torch.utils.checkpoint``: the backward pass recomputes the level
-    instead of keeping its intermediates.
-
-    Checkpoint replays the default RNG streams, not an explicit
-    ``torch.Generator``. So the level draws its jitter from a private
-    generator started from a snapshot of ``generator``; the recompute
-    starts from the same snapshot and draws the same jitter, and
-    ``generator`` moves on once, to where the first run left it."""
-    if generator is None:
-        return checkpoint(level_fn, scene, o, d, w, None,
-                          use_reentrant=False)
-    start = generator.get_state()
-    end = []
-
-    def level(o, d, w):
-        g = torch.Generator(device=generator.device)
-        g.set_state(start)
-        out = level_fn(scene, o, d, w, g)
-        if not end:
-            end.append(g.get_state())
-        return out
-
-    out = checkpoint(level, o, d, w, use_reentrant=False)
-    generator.set_state(end[0])
-    return out
-
-
 def packs(static: T.SceneStatic, r: int) -> bool:
     """Whether ``color_at`` compacts a level of ``r`` rays (the JAX
     package's rule, ``render.py:406-410``): mesh scenes of over 20,000
@@ -360,6 +378,100 @@ def packs(static: T.SceneStatic, r: int) -> bool:
     sort costs more than it saves."""
     return bool((static.counts[5] - static.n_csg_tris > 20000
                  or static.area_steps) and r >= 4096 and r % 16 == 0)
+
+
+# The level steps. color_at's loop and core/tile_program.TileProgram run
+# these same functions: the eager loop level by level, the program as one
+# CUDA graph per (level, width).
+
+def level_width(static: T.SceneStatic, rows: int, n_live: int):
+    """The width a level of ``rows`` rays, ``n_live`` of them live, is
+    shaded at: :func:`_packed_width` where :func:`packs` holds, else None
+    (the whole level, unsorted)."""
+    return _packed_width(rows, n_live) if packs(static, rows) else None
+
+
+def shade_step(scene: T.Scene, o, d, w, jitter, *, width, thread_perm):
+    """One level's trace + shade at ``width`` (:func:`level_width`):
+    (colored, reflect spawn, refract spawn, order), where ``order`` is the
+    live-first permutation a packed ``thread_perm`` level leaves its
+    outputs in, else None."""
+    if width is None:
+        return (*shade_level(scene, o, d, w, jitter=jitter), None)
+    out = _packed_shade_level(scene, o, d, w, jitter=jitter,
+                              thread_perm=thread_perm, width=width)
+    return out if thread_perm else (*out, None)
+
+
+def accumulate(img, perm, colored, order):
+    """The image after a level: its colours added, in the level's slot
+    order; ``perm`` (slot -> row, None for the identity) composed with
+    the level's ``order``. Returns (img, perm)."""
+    if order is None:
+        return img + colored.reshape(-1, img.shape[0], 3).sum(0), perm
+    return img[order] + colored, order if perm is None else perm[order]
+
+
+def spawns(static: T.SceneStatic) -> bool:
+    """Whether a level spawns rays for the next one."""
+    return static.has_reflective or static.has_transparency
+
+
+def spawn_rows(static: T.SceneStatic, rows: int) -> int:
+    """Rays of the next level after a level of ``rows`` rays: blend
+    scenes concatenate the two spawn streams (:func:`spawn_step`)."""
+    return 2 * rows if static.has_blend else rows
+
+
+def spawn_step(static: T.SceneStatic, refl, refr):
+    """The spawn merge: the next level's (o, d, w) from a level's reflect
+    and refract spawns (:func:`spawns` must hold), zero-weight rays
+    parked."""
+    out = []
+    if static.has_reflective:
+        out.append(refl)
+    if static.has_transparency:
+        out.append(refr)
+    if len(out) == 2 and not static.has_blend:
+        # No material is both reflective and transparent: the two spawn
+        # weights are disjoint per ray, so select instead of concatenate
+        # and the level width stays R (exact).
+        (ro, rd, rw), (fo, fd, fw) = out
+        take_r = (rw > 0.0).any(-1, keepdim=True)
+        o = torch.where(take_r, ro, fo)
+        d = torch.where(take_r, rd, fd)
+        w = rw + fw
+    else:
+        o = torch.cat([s[0] for s in out], 0)
+        d = torch.cat([s[1] for s in out], 0)
+        w = torch.cat([s[2] for s in out], 0)
+    # park zero-weight spawns: they cost the mesh kernel nothing
+    o, d = park_rays(o, d, (w > 0.0).any(-1))
+    return o, d, w
+
+
+def live_count(w):
+    """Live rays of a level (any weight > 0), as a device scalar."""
+    return (w > 0.0).any(-1).sum()
+
+
+def finish_step(img, perm):
+    """The tile's colours in its rays' order: the composed permutation of
+    the packed levels undone once."""
+    return img if perm is None else img[torch.argsort(perm)]
+
+
+def quantize_u8(c):
+    """floor(clip(x, 0, 1) * 255 + 0.5) as uint8 (canvas.quantize_u8)."""
+    return torch.floor(c.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _remat(step, scene, o, d, w, jitter):
+    """``step(scene, o, d, w, jitter)`` under ``torch.utils.checkpoint``:
+    the backward pass recomputes the level instead of keeping its
+    intermediates. The level's jitter is drawn before it and passed in, so
+    the recompute reads the same draws and the generator moves on once."""
+    return checkpoint(step, scene, o, d, w, jitter, use_reentrant=False)
 
 
 def color_at(scene: T.Scene, origins, directions, limit=None,
@@ -380,10 +492,14 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     ``remat=True`` runs every level under ``torch.utils.checkpoint``
     (:func:`_remat`): the backward pass recomputes each level's trace, K1
     included, instead of storing its intermediates, so only the level
-    inputs (o, d, w) live across it. A blend scene's deepest level is 16R
-    wide at depth 4. The forward values are the same either way."""
+    inputs (o, d, w and the jitter) live across it. A blend scene's
+    deepest level is 16R wide at depth 4. The forward values are the same
+    either way.
+
+    The steps are those that core/tile_program.TileProgram replays as CUDA
+    graphs (``render``'s default path)."""
     st = scene.static
-    if st.area_steps and st.jitter is None:
+    if draws_jitter(st):
         generator = _seeded(generator, origins.device)
     if limit is None:
         limit = st.recursion_limit
@@ -397,61 +513,44 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     perm = None
     thread_perm = not st.has_blend
     for level in range(limit + 1):
-        level_fn = shade_level
+        width = None
         if level > 0:
-            n_live = int((w > 0.0).any(-1).sum())   # the level's one sync
+            n_live = int(live_count(w))   # the level's one sync
             if n_live == 0:
                 break
-            if packs(st, o.shape[0]):
-                level_fn = functools.partial(
-                    _packed_shade_level, thread_perm=thread_perm,
-                    width=_packed_width(o.shape[0], n_live))
+            width = level_width(st, o.shape[0], n_live)
+        jitter = draw_jitter(scene, o.shape[0] if width is None else width,
+                             generator)
+        step = functools.partial(shade_step, width=width,
+                                 thread_perm=thread_perm)
         if remat:
-            colored, refl, refr, *order = _remat(level_fn, scene, o, d, w,
-                                                 generator)
+            colored, refl, refr, order = _remat(step, scene, o, d, w, jitter)
         else:
-            colored, refl, refr, *order = level_fn(scene, o, d, w, generator)
-        if order:
-            perm = order[0] if perm is None else perm[order[0]]
-            # the spawn merge below takes refl/refr in this order too
-            img = img[order[0]] + colored
-        else:
-            img = img + colored.reshape(-1, r, 3).sum(0)
-        if level == limit:
+            colored, refl, refr, order = step(scene, o, d, w, jitter)
+        img, perm = accumulate(img, perm, colored, order)
+        if level == limit or not spawns(st):
             break
-        spawns = []
-        if st.has_reflective:
-            spawns.append(refl)
-        if st.has_transparency:
-            spawns.append(refr)
-        if not spawns:
-            break
-        if len(spawns) == 2 and not st.has_blend:
-            # No material is both reflective and transparent: the two
-            # spawn weights are disjoint per ray, so select instead of
-            # concatenate and the level width stays R (exact).
-            (ro, rd, rw), (fo, fd, fw) = spawns
-            take_r = (rw > 0.0).any(-1, keepdim=True)
-            o = torch.where(take_r, ro, fo)
-            d = torch.where(take_r, rd, fd)
-            w = rw + fw
-        else:
-            o = torch.cat([s[0] for s in spawns], 0)
-            d = torch.cat([s[1] for s in spawns], 0)
-            w = torch.cat([s[2] for s in spawns], 0)
-        # park zero-weight spawns: they cost the mesh kernel nothing
-        o, d = park_rays(o, d, (w > 0.0).any(-1))
-    if perm is not None:
-        img = img[torch.argsort(perm)]      # undo the composed permutation
-    return img
+        o, d, w = spawn_step(st, refl, refr)
+    return finish_step(img, perm)
 
 
-def tile_rays(inv, consts, idx, hsize: int):
+def tile_rays(inv, consts, idx, hsize):
     """Primary rays for flat pixel ids, on the device (camera.rs:45-64).
 
     inv: [4,4] inverse camera transform; consts: [3] = (half_width,
-    half_height, pixel_size); idx: [R] flat pixel ids (py*hsize+px).
+    half_height, pixel_size); idx: [R] flat pixel ids (py*hsize+px);
+    hsize: the frame's width, an int or an int64 scalar tensor.
     Returns (origins [R,3], directions [R,3]).
+
+    Rounded as the JAX package's ``tile_rays`` rounds op by op on the CPU,
+    so the directions are its own bit for bit: XLA sums the einsum's four
+    rounded products pairwise, ``(wx i0 + wy i1) + (i3 - i2)`` (the -1 and
+    1 columns are exact), and ``jnp.linalg.norm`` takes the squares as a
+    chain of fused multiply-adds, which :func:`intersect.mat3_apply` rounds
+    the same way (a [R, 1, 3] "matrix" of d against d). Its square root is
+    taken in f64 on the CPU: torch's vectorized f32 sqrt there is not
+    correctly rounded (about 0.6% of values differ in the last bit); the
+    card's is.
     """
     half_w, half_h, psize = consts[0], consts[1], consts[2]
     origin = inv[:3, 3]
@@ -459,11 +558,11 @@ def tile_rays(inv, consts, idx, hsize: int):
     pyf = (idx // hsize).to(torch.float32)
     wx = half_w - (pxf + 0.5) * psize
     wy = half_h - (pyf + 0.5) * psize
-    # inv @ (wx, wy, -1, 1), written out (rows 0..2 only)
-    pw = (wx[:, None] * inv[:3, 0] + wy[:, None] * inv[:3, 1]
-          - inv[:3, 2] + inv[:3, 3])
+    pw = ((wx[:, None] * inv[:3, 0] + wy[:, None] * inv[:3, 1])
+          + (inv[:3, 3] - inv[:3, 2]))
     d = pw - origin
-    d = d / torch.sqrt(I.dot3(d, d))[:, None]
+    n2 = I.mat3_apply(d[:, None, :], d)
+    d = d / (torch.sqrt(n2) if n2.is_cuda else torch.sqrt(n2.double()).float())
     return origin.expand(d.shape).contiguous(), d
 
 
@@ -529,7 +628,7 @@ def full_f32():
 
 
 def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
-           generator=None):
+           generator=None, graphs=True):
     """Full frame -> float32 [vsize, hsize, 3] numpy image, on the scene's
     device (``build_scene`` puts it on ``cuda`` unless told otherwise).
 
@@ -538,6 +637,14 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
     ``generator``: a ``torch.Generator`` on the scene's device for the
     area-light jitter, which the tiles draw from in turn (None: seed 0;
     see the module docstring).
+
+    ``graphs=True`` runs each tile through the scene's
+    :class:`~raytracer_tpu_torch.core.tile_program.TileProgram`: on cuda,
+    its levels replayed as CUDA graphs (captured at first use); on the
+    CPU, the same steps on the same buffers without capture.
+    ``graphs=False`` runs :func:`color_at` tile by tile, every op launched
+    from the host. Both give the same frame bit for bit. The frame
+    crosses to the host once.
 
     Matmuls and convolutions are held to full f32 (:func:`full_f32`).
     """
@@ -550,17 +657,22 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
     order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile, device)
     inv, consts = camera_consts(camera, device)
     limit = scene.static.recursion_limit
-    if scene.static.area_steps and scene.static.jitter is None:
+    if draws_jitter(scene.static):
         generator = _seeded(generator, device)
-    outs = []
     with torch.no_grad():
-        for idx in idx_tiles:
-            o, d = _primary_rays(inv, consts, idx, camera.hsize)
-            c = color_at(scene, o, d, limit, generator)
-            if quantize:
-                c = torch.floor(c.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-            outs.append(c)
-        img = torch.cat(outs).cpu().numpy()[:n]
+        if graphs:
+            from raytracer_tpu_torch.core.tile_program import program_for
+            prog = program_for(scene, tile, limit)
+            frame = prog.frame(scene, inv, consts, camera.hsize, idx_tiles,
+                               quantize, generator)
+        else:
+            outs = []
+            for idx in idx_tiles:
+                o, d = _primary_rays(inv, consts, idx, camera.hsize)
+                c = color_at(scene, o, d, limit, generator)
+                outs.append(quantize_u8(c) if quantize else c)
+            frame = torch.cat(outs)
+        img = frame.cpu().numpy()[:n]
     out = np.empty_like(img)
     out[order] = img
     return out.reshape(camera.vsize, camera.hsize, 3)

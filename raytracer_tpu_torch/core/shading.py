@@ -51,7 +51,7 @@ def normal_at(scene: T.Scene, gid, world_point, u, v, tgid=None, inv=None,
     n_local = lp
 
     # plane.rs:75-77
-    up = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    up = T.small_const((0.0, 1.0, 0.0), dev)
     plane_n = up.expand(lp.shape)
 
     # cube.rs:116-133: dominant axis, x-then-y-then-z tie-break
@@ -159,18 +159,50 @@ def schlick(eyev, normalv, n1, n2):
     return torch.where(tir, 1.0, r)
 
 
+def _walk_tables(scene: T.Scene):
+    """The static tables of :func:`refraction_indices_fast`, made once per
+    scene from ``candidate_meta``: the column count, the dynamic (free
+    mesh) columns, the static columns' objects, the sibling-or-self matrix
+    [C, C] as f32, the columns with siblings (ks, js, their [k, j] sibling
+    mask; None when no column has one) and every column's object."""
+    def build():
+        obj_np, siblings, c_static = candidate_meta(scene.static)
+        c = len(obj_np)
+        dev = scene.device
+        n_dyn = c - min(c_static, c)
+        sib_m = np.zeros((c, c), bool)          # [k, j]: k sibling of j
+        for j in range(c):
+            for k in siblings[j]:
+                sib_m[k, j] = True
+        ks = np.nonzero(sib_m.any(axis=1))[0]
+        js = np.nonzero(sib_m.any(axis=0))[0]
+        sup = None
+        if len(ks):
+            sup = (torch.as_tensor(ks, device=dev),
+                   torch.as_tensor(js, device=dev),
+                   torch.as_tensor(sib_m[np.ix_(ks, js)], device=dev))
+        return dict(
+            c=c, n_dyn=n_dyn,
+            static_obj=torch.as_tensor(obj_np[: c - n_dyn], device=dev).long(),
+            cnt_m=torch.as_tensor(sib_m | np.eye(c, dtype=bool),
+                                  device=dev).to(torch.float32),
+            sup=sup, obj_cols=torch.as_tensor(obj_np, device=dev))
+
+    return scene.const("walk", build)
+
+
 def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
     """n1/n2 container walk specialized to the canonical candidate layout
     of intersect.candidate_hits (unsorted, column->object map static).
 
     Same math as :func:`refraction_indices`, but sibling columns of each
-    object are known ahead of time, so parity and latest-toggle checks
-    need no [R, C, C] tensor over all columns.
+    object are known ahead of time (:func:`_walk_tables`), so parity and
+    latest-toggle checks need no [R, C, C] tensor over all columns.
     """
-    obj_np, siblings, c_static = candidate_meta(scene.static)
+    tab = _walk_tables(scene)
     c = ts.shape[-1]
-    if len(obj_np) != c:
-        raise ValueError(f"candidate layout has {len(obj_np)} columns, "
+    if tab["c"] != c:
+        raise ValueError(f"candidate layout has {tab['c']} columns, "
                          f"table has {c}")
     dev = ts.device
     r = ts.shape[0]
@@ -180,9 +212,8 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
     # lookup; free-mesh columns per ray unless every mesh source shares
     # one refractive index.
     mat_refr = scene.mat[:, T.MAT_REFRACTIVE]              # [M]
-    n_dyn = c - min(c_static, c)
-    static_rows = transform_row(
-        scene, torch.as_tensor(obj_np[: c - n_dyn], device=dev).long())
+    n_dyn = tab["n_dyn"]
+    static_rows = transform_row(scene, tab["static_obj"])
     refr_static = mat_refr[scene.mat_id[static_rows].long()][None, :].expand(
         r, c - n_dyn)
     if n_dyn:
@@ -204,29 +235,19 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
         (ts < t_h) | ((ts == t_h) & (idx[None, :] < hit_slot[:, None]))
     )                                                      # [R, C]
 
-    sib_m = np.zeros((c, c), bool)              # [k, j]: k sibling of j
-    for j in range(c):
-        for k in siblings[j]:
-            sib_m[k, j] = True
     # per-column toggle count of its object: an f32 product of 0/1
     # matrices, exact for these small integer sums
-    cnt = (before.to(torch.float32) @ torch.as_tensor(
-        sib_m | np.eye(c, dtype=bool), device=dev).to(torch.float32)
-    ).to(torch.int32)
-    ks = np.nonzero(sib_m.any(axis=1))[0]
-    js = np.nonzero(sib_m.any(axis=0))[0]
+    cnt = (before.to(torch.float32) @ tab["cnt_m"]).to(torch.int32)
     superseded = torch.zeros_like(before)
-    if len(ks):
-        ks_t = torch.as_tensor(ks, device=dev)
-        js_t = torch.as_tensor(js, device=dev)
+    if tab["sup"] is not None:
+        ks_t, js_t, sib_kj = tab["sup"]
         ts_k = ts[:, ks_t][:, :, None]
         ts_j = ts[:, js_t][:, None, :]
         later = (ts_k > ts_j) | (
             (ts_k == ts_j) & (ks_t[:, None] > js_t[None, :])[None]
         )                                       # [R, k, j]
         sup_js = (
-            torch.as_tensor(sib_m[np.ix_(ks, js)], device=dev)[None]
-            & before[:, ks_t, None] & later
+            sib_kj[None] & before[:, ks_t, None] & later
         ).any(1)                                # [R, len(js)]
         superseded[:, js_t] = sup_js
     open_col = (cnt % 2) == 1
@@ -242,7 +263,7 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
 
     n1 = latest(live)
 
-    obj_cols = torch.as_tensor(obj_np, device=dev)
+    obj_cols = tab["obj_cols"]
     obj_h = obj_cols[hit_slot][:, None]                    # [R, 1]
     h_was_open = select_col(open_col, hit_slot)
     refr_h = select_col(refr, hit_slot)

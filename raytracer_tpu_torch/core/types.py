@@ -20,6 +20,7 @@ one to one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -152,6 +153,26 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.mat.device
+
+    def const(self, key, build):
+        """``build()`` (tensors on this scene's device made from the static
+        facts: index columns, masks, sample tables), made on the first call
+        for ``key`` and kept on the scene. A level then uploads nothing, so
+        it runs as a CUDA graph (core/tile_program.py), and the eager path
+        skips the same copies. The cache is not a field: ``replace`` and
+        ``scene_from_arrays`` start a scene without it."""
+        cache = self.__dict__.setdefault("_consts", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+
+@functools.lru_cache(maxsize=None)
+def small_const(values: tuple, device: torch.device,
+                dtype=torch.float32) -> torch.Tensor:
+    """The tensor of ``values`` on ``device``, uploaded once per process
+    (park sentinels, unit axes). Read only: callers never write it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 ARRAY_FIELDS = tuple(

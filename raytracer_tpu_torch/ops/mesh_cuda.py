@@ -290,6 +290,25 @@ def reset_launches():
         _wrapper.launches_by_mode[k] = 0
 
 
+def launch_counts() -> dict:
+    """The launch counters: K1's ("k1" and by mode) and K1b's
+    ("prepass")."""
+    return {"k1": _wrapper.launches, **_wrapper.launches_by_mode,
+            "prepass": live_supergroups.launches}
+
+
+def add_launches(delta: dict, sign: int = 1):
+    """Adds ``sign`` times ``delta`` (a difference of two
+    :func:`launch_counts`) to the counters. A CUDA graph records its K1
+    and K1b launches when it is captured, which launches nothing
+    (core/tile_program.py takes them back off) and launches them on every
+    replay (it adds them again)."""
+    _wrapper.launches += sign * delta["k1"]
+    for k in _wrapper.launches_by_mode:
+        _wrapper.launches_by_mode[k] += sign * delta[k]
+    live_supergroups.launches += sign * delta["prepass"]
+
+
 def _cross(a, b):
     """a x b over the last axis of 3, written out."""
     ax, ay, az = a.unbind(-1)

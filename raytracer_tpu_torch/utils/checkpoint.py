@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core.render import (
-    _order_tiles, camera_consts, color_at, full_f32, tile_rays as
-    _primary_rays)
+    _order_tiles, camera_consts, full_f32)
+from raytracer_tpu_torch.core.tile_program import program_for
 from raytracer_tpu_torch.core.types import ARRAY_FIELDS
 from raytracer_tpu_torch.utils.profiling import RenderStats
 
@@ -54,11 +54,12 @@ def _tile_generator(scene, seed: int, ti: int):
     return g
 
 
-def _tile_color(scene, inv, consts, idx, generator, limit, hsize):
-    """One tile's colours [tile, 3] as a numpy array."""
+def _tile_color(program, scene, idx, generator):
+    """One tile's colours [tile, 3] through ``program``, as a numpy
+    array."""
     with torch.no_grad():
-        o, d = _primary_rays(inv, consts, idx, hsize)
-        return color_at(scene, o, d, limit, generator).cpu().numpy()
+        return program.run_tile(scene, idx, generator,
+                                quantize=False).cpu().numpy()
 
 
 def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
@@ -77,6 +78,10 @@ def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
     RuntimeError with every other finished tile already flushed, so the
     next run retries only that tile. ``on_retry(tile_index, attempt,
     reason)`` observes the retries.
+
+    Each tile runs through the scene's tile program
+    (``core/tile_program.py``: on cuda its levels replayed as CUDA
+    graphs), the counterpart of the JAX package's ``_tile_color_jit``.
 
     Two differences from the JAX package's ``render_resumable``, each
     leaving the image as ``render`` gives it:
@@ -120,8 +125,8 @@ def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
 
     order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile,
                                     scene.device)
-    inv, consts = camera_consts(camera, scene.device)
-    limit = scene.static.recursion_limit
+    program = program_for(scene, tile, scene.static.recursion_limit)
+    program.set_camera(*camera_consts(camera, scene.device), camera.hsize)
 
     for ti in range(n_tiles):
         if done[ti]:
@@ -131,9 +136,8 @@ def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
         part = None
         for attempt in range(max_retries + 1):
             try:
-                part = _tile_color(scene, inv, consts, idx_tiles[ti],
-                                   _tile_generator(scene, seed, ti), limit,
-                                   camera.hsize)
+                part = _tile_color(program, scene, idx_tiles[ti],
+                                   _tile_generator(scene, seed, ti))
             except Exception as e:  # a device or launch error
                 reason = f"{type(e).__name__}: {e}"
                 part = None

@@ -183,8 +183,9 @@ def test_pairwise_filter_matches_sorted_with_ties():
         ts[ts > 1.0] = np.inf
         ts[:, 3] = ts[:, 1]          # an exact duplicate column: a t-tie
         sub = torch.as_tensor(ts)
-        got_p = CSG._filter_pairwise(sub, nodes, under, left)
-        got_s = CSG._filter_sorted(sub, nodes, under, left)
+        plan = CSG._node_plan(nodes, under, left, sub.device)
+        got_p = CSG._filter_pairwise(sub, plan)
+        got_s = CSG._filter_sorted(sub, plan)
         assert torch.equal(got_p, got_s)
         want = np.asarray(JCSG._filter_pairwise(jnp.asarray(ts), nodes,
                                                 under, left))

@@ -344,3 +344,51 @@ def test_render_loss_and_grad_cuda_matches_cpu():
         assert np.isfinite(x).all(), k
         np.testing.assert_allclose(x, g_p[k].numpy(), rtol=1e-3, atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["glass_mesh4", "flagship", "csg_area"])
+def test_graphed_frames_equal_eager(name):
+    """render's tile program (each tile's levels replayed as CUDA graphs)
+    against the eager loop (graphs=False): u8 frames bit-equal, the same
+    K1 launches per frame (the graphed side counted from its replays), and
+    a moved camera, and a frame of another width, reuse the program (its
+    graphs read the camera and the width from buffers) and still equal the
+    eager frame."""
+    _require_cuda()
+    from raytracer_tpu_torch import transforms as tf
+    from raytracer_tpu_torch.camera import Camera
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    if name == "csg_area":           # random area-light jitter, seed 0
+        cam, sc = parse_scene(scenes.csg_area_yaml(64, 64), device="cuda")
+    else:
+        items, cam = (scenes.glass_mesh(instances=4, hsize=96, vsize=54)
+                      if name == "glass_mesh4" else scenes.flagship(64, 48))
+        sc = build_scene(items, device="cuda")
+    frames = {}
+    for graphs in (True, True, False):
+        MC.reset_launches()
+        frames.setdefault(graphs, []).append(
+            (render(sc, cam, quantize=True, graphs=graphs),
+             dict(MC.launch_counts())))
+    (first, _), (graphed, k_graphed) = frames[True]
+    eager, k_eager = frames[False][0]
+    np.testing.assert_array_equal(first, eager)
+    np.testing.assert_array_equal(graphed, eager)
+    assert k_graphed == k_eager
+    prog = TP.program_of(sc)
+    assert prog.stats["captured"] == len(prog.graphs) > 0
+    moved = Camera(cam.hsize, cam.vsize, cam.field_of_view).with_transform(
+        tf.view_transform((0.5, 2.0, -6.0), (0.0, 0.8, 0.0), (0.0, 1.0, 0.0)))
+    np.testing.assert_array_equal(
+        render(sc, moved, quantize=True),
+        render(sc, moved, quantize=True, graphs=False))
+    # half the width, twice the height: the same pixels, so the same tile
+    narrow = Camera(cam.hsize // 2, cam.vsize * 2, cam.field_of_view)
+    narrow = narrow.with_transform(cam.transform)
+    np.testing.assert_array_equal(
+        render(sc, narrow, quantize=True),
+        render(sc, narrow, quantize=True, graphs=False))
+    assert TP.program_of(sc) is prog
