@@ -65,17 +65,33 @@ Phases (any failure exits non-zero before the final line):
    gradient table to rtol 1e-3, atol 1e-5), central differences on the
    card (the mesh's diffuse, the eye's y), and K1 launched by the backward
    pass (the remat recompute). (7b) train cells at 512x256 = 131,072 rays
-   in render's block order, one warm-up step and 3 timed: glass_train
-   (glass_mesh, 353,920 triangles) and flagship_train, train_step with
-   n_micro=4, remat off (one more glass step with remat on), and
-   dragons_pose (1,061,760 triangles, Adam on the eye position); s/step,
-   rays/s fwd+bwd, peak memory, K1 launches per step by mode, the losses,
-   which must fall. Every K1 call of each cell's warm-up step (32,768-ray
+   in render's block order, through the train program (each level's
+   forward and backward replayed as CUDA graphs, core/train_program.py,
+   the default of every train entry point; the warm-up step captures
+   them), one warm-up step and 3 timed: glass_train (glass_mesh, 353,920
+   triangles) and flagship_train, train_step with n_micro=4, remat off
+   (one more glass step with remat on, after a warm-up step), and
+   dragons_pose (1,061,760 triangles, Adam on the eye position:
+   render_loss_and_grad of rays that require grad, made from the eye by
+   the differentiable camera, and no scene parameter); s/step, rays/s
+   fwd+bwd, peak memory, K1 launches per step by mode, the losses, which
+   must fall. Every K1 call of each cell's warm-up step (32,768-ray
    microbatches at S = 32 slices per subtile for glass_train, 131,072 rays
    at S = 8 for dragons_pose) is recorded with its outputs, which are held
    against the plain version as in phase 2, in 65,536-ray blocks. (7c) one
    step of each cell under torch.profiler. Then
    ``raytracer_tpu_torch.examples.inverse_render --pose`` on the card.
+   (7d, launch counters zeroed just before) each cell's gradient on one
+   fixed state, graphed against graphs=False in turns (graphed, eager,
+   eager, graphed): losses bit-equal, every gradient table within rtol
+   1e-3, atol 1e-5 (the largest relative difference logged), K1
+   launches per step by mode equal on both sides, s/step, the program's
+   graphs and capture seconds, peak device memory (graphed: allocated +
+   the graph pool); only the graphed side's launches join the kernels
+   line. Then one graphed and one eager dragons_pose gradient under
+   torch.profiler: device busy, idle share, the host's cudaGraphLaunch
+   and cudaLaunchKernel calls, and K1's and K1b's device events, which
+   must equal the counters' deltas.
 8. packed levels, resumable and multi-process rendering, the examples
    (launch counters zeroed again just before it, and read just after 8d):
    (8a) one dragons_equiv tile and one glass_mesh tile, each packed
@@ -85,8 +101,10 @@ Phases (any failure exits non-zero before the final line):
    its tiles by an exception from a RenderStats hook, then resumed: the u8
    frame against phase 5's (0.5% budget), rays/s of both parts, any retry
    a failure. (8c) NCCL at world size 1 (a localhost TCP store):
-   parallel.render_sharded on dragons_equiv, one warm-up call then one
-   timed, against render; one make_sharded_train_step step on
+   parallel.render_sharded on dragons_equiv through the tile program,
+   one warm-up call then one timed, against render (timed beside it),
+   and one graphs=False call (the same frame); one
+   make_sharded_train_step step on
    glass_train's 131,072-ray batch against train_step (loss to rtol 1e-5,
    tables to rtol 1e-4), the group torn down. (8d) examples basic_scene,
    csg and hexagon at 1280x720 as subprocesses on the card: each a
@@ -211,6 +229,12 @@ class Recorder:
         self.mc.mesh_nearest = self.orig
 
     def __call__(self, o, d, planes, bb, **kw):
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            # a graph's capture runs nothing: its first occurrence ran
+            # eagerly just before and was recorded then
+            return self.orig(o, d, planes, bb, **kw)
         t = kw.get("t_init")
         call = dict(
             o=o.detach().clone(), d=d.detach().clone(), planes=planes, bb=bb,
@@ -1041,13 +1065,15 @@ def train_cells(mc, dev, dragons):
     one more glass step with remat on, and dragons_pose (Adam on the eye
     position against the frame from the true eye). Every batch is in
     render's block order. Returns (numbers, {cell: (its step, the state
-    to step from)} for the profiles, the max |t_kernel - t_plain| over the
-    warm-up steps' K1 calls)."""
+    to step from, its gradient function of ``graphs`` on one fixed
+    state)} for the profiles and 7d, the max |t_kernel - t_plain| over
+    the warm-up steps' K1 calls)."""
     import torch
 
     from raytracer_tpu_torch import scenes
     from raytracer_tpu_torch.core.render import color_at
-    from raytracer_tpu_torch.parallel import train_step
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss_and_grad, train_step)
     from raytracer_tpu_torch.scene import build_scene
 
     h, v = TRAIN_SIZE
@@ -1059,16 +1085,25 @@ def train_cells(mc, dev, dragons):
         o, d, _ = block_rays(cam, dev)
         black = torch.zeros_like(o)
 
-        def step(scene, o=o, d=d, black=black):
+        def step(scene, graphs=True, o=o, d=d, black=black):
             return train_step(scene, o, d, black, lr=1e-3, n_micro=4,
-                              remat=False)
+                              remat=False, graphs=graphs)
 
         out[label], sc, e = timed_steps(label, mc, step, sc, o.shape[0])
         max_err = max(max_err, e)
-        runs[label] = (step, sc)
+
+        def grads(graphs, sc=sc, o=o, d=d, black=black):
+            params, recombine = partition_scene(sc)
+            return render_loss_and_grad(params, recombine, o, d, black,
+                                        n_micro=4, remat=False,
+                                        graphs=graphs)
+
+        runs[label] = (step, sc, grads)
         out[label].update(triangles=sc.static.counts[5],
                           resolution=f"{h}x{v}", n_micro=4, remat=False)
         if label == "glass_train":
+            # a warm-up step captures the remat program's graphs
+            train_step(sc, o, d, black, lr=1e-3, n_micro=4, remat=True)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1088,30 +1123,154 @@ def train_cells(mc, dev, dragons):
     with torch.no_grad():
         target = color_at(dragons, *eye_rays(
             cam, torch.tensor(frm, device=dev), order, to, up))
-    eye = torch.tensor(frm, device=dev) + torch.tensor(
+    start = torch.tensor(frm, device=dev) + torch.tensor(
         [0.1, -0.1, -0.1], device=dev)
-    eye.requires_grad_(True)
+    eye = start.clone().requires_grad_(True)
     opt = torch.optim.Adam([eye], lr=0.03)
     grads = []
 
-    def pose_step(_):
+    def pose_loss(eye, graphs):
+        """The image MSE over the eye: the rays require grad, the scene's
+        tables are no parameter (render_loss_and_grad of none)."""
+        loss, _ = render_loss_and_grad(
+            {}, lambda _: dragons, *eye_rays(cam, eye, order, to, up),
+            target, remat=False, graphs=graphs)
+        return loss
+
+    def pose_step(_, graphs=True):
         opt.zero_grad(set_to_none=True)
-        loss = torch.mean((color_at(dragons, *eye_rays(cam, eye, order, to,
-                                                       up)) - target) ** 2)
-        loss.backward()
+        loss = pose_loss(eye, graphs)
         grads.append(eye.grad.detach().cpu().tolist())
         if not bool(torch.isfinite(eye.grad).all()):
             raise AssertionError(f"dragons_pose: gradient {eye.grad}")
         opt.step()
-        return loss.detach(), None
+        return loss, None
+
+    def pose_grads(graphs):
+        at = start.clone().requires_grad_(True)
+        loss = pose_loss(at, graphs)
+        return loss, {"eye": at.grad}
 
     out["dragons_pose"], _, e = timed_steps("dragons_pose", mc, pose_step,
                                             None, h * v)
     out["dragons_pose"].update(triangles=dragons.static.counts[5],
                                resolution=f"{h}x{v}", eye_grads=list(grads),
                                eye=eye.detach().cpu().tolist())
-    runs["dragons_pose"] = (pose_step, None)
+    runs["dragons_pose"] = (pose_step, None, pose_grads)
     return out, runs, max(max_err, e)
+
+
+def grad_diff(label, got, want):
+    """A graphed cell's (loss, grads) against the eager step's on the same
+    state: the loss equal bit for bit, every table to phase 7's card-vs-CPU
+    tolerances (rtol 1e-3, atol 1e-5; ``index_add_`` adds in atomic order
+    on the card). Returns (largest |difference|, largest relative
+    difference over the entries whose eager value is not 0)."""
+    import numpy as np
+    import torch
+
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{label}: graphed loss {float(got[0])!r} is "
+                             f"not the eager loss {float(want[0])!r}")
+    worst = rel = 0.0
+    for k, g in want[1].items():
+        a, b = got[1][k].detach().cpu().numpy(), g.detach().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite gradient of {k}")
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5,
+                                   err_msg=f"{label}: {k}")
+        if a.size:
+            worst = max(worst, float(np.abs(a - b).max()))
+            nz = b != 0
+            if nz.any():
+                rel = max(rel, float(
+                    (np.abs(a - b)[nz] / np.abs(b[nz])).max()))
+    return worst, rel
+
+
+def graphed_vs_eager(mc, runs):
+    """7d: each train cell's gradient (the step of 7b without its update,
+    on one fixed state) through the train program and through
+    graphs=False in turns (graphed, eager, eager, graphed; host clock to a
+    synchronize): the losses bit-equal, the gradients within phase 7's
+    tolerances, K1 launches per step by mode equal on both sides (the
+    graphed side's counted from replays), the program's graphs and
+    capture seconds, and peak device memory (graphed: allocated + the
+    program's graph pool). Launch counters are read around every call:
+    ``launches`` keeps each side's totals, so that only the graphed side's
+    join the kernels line. Then one graphed and one eager dragons_pose
+    gradient under torch.profiler, whose K1 and K1b device events must
+    equal the counters' deltas."""
+    import torch
+
+    from raytracer_tpu_torch.core import train_program as TPG
+
+    out = {}
+    launches = {g: dict.fromkeys(mc.launch_counts(), 0)
+                for g in ("graphed", "eager")}
+    for label, (_, _, grads) in runs.items():
+        res = {g: dict(s=[], k1=[], peak=0) for g in ("graphed", "eager")}
+        got = {}
+        for graphs in (True, False, False, True):
+            side = "graphed" if graphs else "eager"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res[side].setdefault("base", torch.cuda.memory_allocated())
+            before = mc.launch_counts()
+            t0 = time.perf_counter()
+            loss, g = grads(graphs)
+            torch.cuda.synchronize()
+            res[side]["s"].append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in mc.launch_counts().items()}
+            for k, v in delta.items():
+                launches[side][k] += v
+            res[side]["k1"].append({k: delta[k] for k in
+                                    mc.mesh_nearest.launches_by_mode})
+            res[side]["peak"] = max(res[side]["peak"],
+                                    torch.cuda.max_memory_allocated())
+            got.setdefault(side, (loss, g))
+            if graphs:
+                prog = TPG.programs()[0]
+        res["max_abs_diff"], res["max_rel_diff"] = grad_diff(
+            f"[7d] {label}", got["graphed"], got["eager"])
+        for side in ("graphed", "eager"):
+            res[side]["s_per_step"] = statistics.median(res[side]["s"])
+        if (res["graphed"]["k1"][0] != res["eager"]["k1"][0]
+                or len({json.dumps(x) for x in res["graphed"]["k1"]
+                        + res["eager"]["k1"]}) != 1):
+            raise AssertionError(f"{label}: K1 launches per step differ: "
+                                 f"{res['graphed']['k1']} vs "
+                                 f"{res['eager']['k1']}")
+        res.update(graphs=len(prog.graphs), stats=dict(prog.stats),
+                   levels=prog.levels, graph_pool_bytes=graph_pool_bytes(prog),
+                   graphed_over_eager=res["graphed"]["s_per_step"]
+                   / res["eager"]["s_per_step"])
+        res["peak_graphed_over_eager"] = (
+            res["graphed"]["peak"] + res["graph_pool_bytes"]) / res["eager"][
+                "peak"]
+        log(f"  [7d] {label}, graphed against eager: {json.dumps(res)}")
+        out[label] = res
+    out["launches"] = launches
+    grads = runs["dragons_pose"][2]
+    out["profile"] = {}
+    for graphs in (True, False):
+        side = "graphed" if graphs else "eager"
+        before = mc.launch_counts()
+        prof = profile_run(lambda: grads(graphs),
+                           out["dragons_pose"][side]["s_per_step"],
+                           count_kernels=tuple(PROFILED_KERNELS))
+        counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
+        prof["counted"] = {name: sum(counted[k] for k in keys)
+                           for name, keys in PROFILED_KERNELS.items()}
+        if prof["kernel_events"] != prof["counted"]:
+            raise AssertionError(
+                f"dragons_pose {side} step: the profiler's kernel events "
+                f"{prof['kernel_events']} differ from the launch counters "
+                f"{prof['counted']}")
+        out["profile"][side] = prof
+    log(f"  [7d] one dragons_pose gradient under torch.profiler, graphed "
+        f"and eager: {json.dumps(out['profile'])}")
+    return out
 
 
 def grad_phase(mc, dev, out_dir, dragons):
@@ -1125,7 +1284,7 @@ def grad_phase(mc, dev, out_dir, dragons):
     out = {"parity": grad_parity(mc, dev)}
     cells, runs, out["max_err"] = train_cells(mc, dev, dragons)
     out["cells"], out["runs"] = cells, runs
-    for label, (step, state) in runs.items():
+    for label, (step, state, _) in runs.items():
         cells[label]["profile"] = profile_run(
             lambda: step(state), cells[label]["s_per_step"])
         log(f"  [7c] one {label} step under torch.profiler: "
@@ -1146,6 +1305,17 @@ def grad_phase(mc, dev, out_dir, dragons):
     if out["by_mode"]["nearest"] == 0 or out["by_mode"]["behind"] == 0:
         raise AssertionError(f"phase 7 did not run K1 in nearest and "
                              f"behind modes: {out['by_mode']}")
+    log("  [7d] graphed against eager (K1 launch counters zeroed)")
+    mc.reset_launches()
+    out["graphed_vs_eager"] = ab = graphed_vs_eager(mc, runs)
+    graphed = ab["launches"]["graphed"]
+    out["launches"] += graphed["k1"]
+    out["pre_launches"] += graphed["prepass"]
+    out["by_mode"] = {k: out["by_mode"][k] + graphed[k]
+                      for k in out["by_mode"]}
+    log(f"  K1 launches of 7d's graphed steps: {graphed}; the eager "
+        f"control's, kept out of the kernels line: "
+        f"{ab['launches']['eager']}")
     return out
 
 
@@ -1290,7 +1460,7 @@ def packing_steps(runs):
     out = {}
     try:
         for label in ("glass_train", "dragons_pose"):
-            step, state = runs[label]
+            step, state, _ = runs[label]
             res = {m: dict(s=[], max_memory_allocated=[], device_busy_s=[])
                    for m in ("unpacked", "packed")}
             for mode in ("unpacked", "packed", "packed", "unpacked"):
@@ -1371,8 +1541,11 @@ def resumable_phase(out_dir, dragons, d_cam, dragons_img):
 
 def sharded_phase(dev, dragons, d_cam):
     """8c: NCCL at world size 1 (a localhost TCP store): render_sharded on
-    dragons_equiv against render, one make_sharded_train_step step on
-    glass_train's batch against train_step, then the group torn down."""
+    dragons_equiv (graphed, its default: one warm-up call, then one timed)
+    against render's graphed frame (timed beside it) and one
+    graphs=False call (timed, the same frame bit for bit); one
+    make_sharded_train_step step on glass_train's batch against
+    train_step (both graphed), then the group torn down."""
     import socket
 
     import numpy as np
@@ -1395,11 +1568,23 @@ def sharded_phase(dev, dragons, d_cam):
         mesh = make_mesh(dev.type)
         want = render(dragons, d_cam)
         t0 = time.perf_counter()
-        render_sharded(dragons, d_cam, mesh)     # warm-up: NCCL's set-up
+        want = render(dragons, d_cam)
+        res["render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        render_sharded(dragons, d_cam, mesh)     # warm-up: NCCL, captures
         res["sharded_warmup_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         img = render_sharded(dragons, d_cam, mesh)
         res["sharded_s"] = time.perf_counter() - t0
+        res["sharded_over_render"] = res["sharded_s"] / res["render_s"]
+        t0 = time.perf_counter()
+        eager = render_sharded(dragons, d_cam, mesh, graphs=False)
+        res["sharded_eager_s"] = time.perf_counter() - t0
+        res["sharded_eager_pixels_differing"] = int(
+            (eager != img).any(-1).sum())
+        if res["sharded_eager_pixels_differing"]:
+            raise AssertionError("render_sharded graphed differs from "
+                                 "graphs=False")
         diff = np.abs(img - want)
         res["sharded_max_abs_diff"] = float(diff.max())
         res["sharded_pixels_differing"] = int((diff > 0).any(-1).sum())
@@ -1441,6 +1626,7 @@ def sharded_phase(dev, dragons, d_cam):
         res["step_tables_max_abs_diff"] = worst
     finally:
         dist.destroy_process_group()
+        dragons.__dict__.pop("_replica", None)   # and its tile program
     log(f"  [8c] world size 1: {json.dumps(res)}")
     return res
 
@@ -1854,12 +2040,14 @@ def captured_alone(mc, call):
 
 
 def graph_pool_bytes(prog):
-    """Bytes of the device segments in the program's graph memory pool."""
+    """Bytes of the device segments in the program's graph memory pools
+    (a tile program has one; a train program one more for each forward
+    graph whose tensors it keeps)."""
     import torch
 
-    pool = tuple(prog.pool)
+    pools = {tuple(p) for p in getattr(prog, "pools", [prog.pool])}
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == pool)
+               if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 def compiled_cell(mc, label, scene, cam):

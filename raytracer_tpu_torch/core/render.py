@@ -455,6 +455,27 @@ def live_count(w):
     return (w > 0.0).any(-1).sum()
 
 
+def level_step(scene: T.Scene, level: int, limit: int, o, d, w, img, perm,
+               jitter, *, width, thread_perm, tracks_perm):
+    """One level of a batch as the compiled programs run it: the shade
+    (:func:`shade_step`), the image update (:func:`accumulate`) and,
+    below ``limit`` in a scene that spawns, the next level's rays
+    (:func:`spawn_step`) and their live count. Returns the outputs by
+    name: ``img``, ``perm`` (with ``tracks_perm``), ``o``, ``d``, ``w``
+    and ``live``."""
+    st = scene.static
+    colored, refl, refr, order = shade_step(
+        scene, o, d, w, jitter, width=width, thread_perm=thread_perm)
+    img, perm = accumulate(img, perm, colored, order)
+    out = {"img": img}
+    if tracks_perm:
+        out["perm"] = perm
+    if level < limit and spawns(st):
+        o, d, w = spawn_step(st, refl, refr)
+        out.update(o=o, d=d, w=w, live=live_count(w))
+    return out
+
+
 def finish_step(img, perm):
     """The tile's colours in its rays' order: the composed permutation of
     the packed levels undone once."""

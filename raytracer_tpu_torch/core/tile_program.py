@@ -141,18 +141,10 @@ class TileProgram:
     def _shade(self, scene, level, rows, width, o, d, w, img, perm):
         """One level at ``width`` on its inputs: the render steps, their
         results by buffer name."""
-        st = self.static
-        colored, refl, refr, order = R.shade_step(
-            scene, o, d, w, self._jitter(rows if width is None else width),
-            width=width, thread_perm=self.thread_perm)
-        img, perm = R.accumulate(img, perm, colored, order)
-        out = {"img": img}
-        if self.tracks_perm:
-            out["perm"] = perm
-        if level < self.limit and R.spawns(st):
-            o, d, w = R.spawn_step(st, refl, refr)
-            out.update(o=o, d=d, w=w, live=R.live_count(w))
-        return out
+        return R.level_step(
+            scene, level, self.limit, o, d, w, img, perm,
+            self._jitter(rows if width is None else width), width=width,
+            thread_perm=self.thread_perm, tracks_perm=self.tracks_perm)
 
     def _level0(self, scene):
         r = self.tile

@@ -25,6 +25,7 @@ from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.render import (
     _block_order, camera_consts, color_at, full_f32,
     pick_tile_rays, tile_rays as _primary_rays)
+from raytracer_tpu_torch.core.tile_program import program_for
 from raytracer_tpu_torch.ops.mesh_cuda import RT
 
 RAY_AXIS = "rays"
@@ -119,9 +120,25 @@ def replicate_scene(scene: T.Scene) -> T.Scene:
     of this module spans): its static facts and table shapes go out first,
     then each table is broadcast into a buffer on this rank's device, so
     every rank renders the same scene even where their builds differ. No
-    process group: ``scene`` itself."""
+    process group: ``scene`` itself.
+
+    The replica is kept on ``scene``: when every rank passes the scene it
+    passed last time (one ``all_reduce`` of a flag decides), each gets its
+    kept replica back, and with it the replica's tile program, so a second
+    ``render_sharded`` of one scene replays the graphs of the first."""
     if not dist.is_initialized():
         return scene
+    kept = scene.__dict__.get("_replica")
+    have = torch.tensor([int(kept is not None)], device=scene.device)
+    dist.all_reduce(have, op=dist.ReduceOp.MIN)
+    if int(have) == 1:
+        return kept
+    scene.__dict__["_replica"] = replica = _broadcast_scene(scene)
+    return replica
+
+
+def _broadcast_scene(scene: T.Scene) -> T.Scene:
+    """Rank 0's static facts and tables, broadcast to every rank."""
     rank = dist.get_rank()
     meta = [(scene.static, {
         k: None if getattr(scene, k) is None
@@ -164,7 +181,7 @@ def shard_rays(origins, directions, mesh=None):
 
 
 def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
-                   generator=None):
+                   generator=None, graphs=True):
     """Full frame, the rays split over the ranks of ``mesh``; every rank
     returns the same float32 [vsize, hsize, 3] numpy image.
 
@@ -178,7 +195,14 @@ def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
 
     ``generator``: this rank's area-light jitter (None: seeded with the
     rank's position, so one process alone draws as ``render`` does);
-    seeded frames agree with ``render``'s in distribution."""
+    seeded frames agree with ``render``'s in distribution.
+
+    ``graphs=True`` runs each rank's slabs through the replica's tile
+    program (``core/tile_program.program_for(scene, per_rank, limit)``,
+    the JAX package's jitted ``run``): on cuda each level replayed as a
+    CUDA graph, on the CPU the same steps without capture.
+    ``graphs=False`` runs :func:`~raytracer_tpu_torch.core.render.color_at`
+    slab by slab. Both give the same frame bit for bit."""
     full_f32()
     pos, n_ranks, groups = _layout(mesh)
     scene = replicate_scene(scene)
@@ -199,9 +223,15 @@ def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
         generator.manual_seed(pos)
     inv, consts = camera_consts(camera, device)
     with torch.no_grad():
-        mine = torch.cat([
-            color_at(scene, *_primary_rays(inv, consts, idx, camera.hsize),
-                     st.recursion_limit, generator) for idx in slabs])
+        if graphs:
+            prog = program_for(scene, per_rank, st.recursion_limit)
+            mine = prog.frame(scene, inv, consts, camera.hsize, slabs, False,
+                              generator)
+        else:
+            mine = torch.cat([
+                color_at(scene, *_primary_rays(inv, consts, idx,
+                                               camera.hsize),
+                         st.recursion_limit, generator) for idx in slabs])
         if groups:          # one rank in a group still takes the collective
             every = _all_gather(mine.reshape(len(slabs), per_rank, 3), groups)
             mine = every.transpose(0, 1)        # [tile, rank, per_rank, 3]

@@ -14,6 +14,13 @@ Parameters are dicts of tensors named after the :class:`Scene` fields
 The JAX package's ``make_optax_step`` becomes :func:`make_optim_step` over
 ``torch.optim``; its sharded step is :func:`make_sharded_train_step`, over
 ``torch.distributed`` (``parallel/mesh.py``).
+
+The JAX package jits its train steps; here every entry point that takes
+a gradient runs it through ``core/train_program.TrainProgram`` by default
+(``graphs=True``): each level's forward and backward replayed as CUDA
+graphs on the card, the same steps on the same buffers without capture
+on the CPU. ``graphs=False`` runs :func:`render_loss` eagerly and
+backpropagates through autograd, every op launched from the host.
 """
 
 from __future__ import annotations
@@ -105,23 +112,44 @@ def _grad_microbatched(params, recombine, origins, directions, target,
     m = n // n_micro
     leaves = _leaves(params)
     loss_sum = torch.zeros((), device=origins.device)
+    ray_grad = origins.requires_grad or directions.requires_grad
     for i in range(n_micro):
         sl = slice(i * m, (i + 1) * m)
         loss = render_loss(leaves, recombine, origins[sl], directions[sl],
                            target[sl], generator, remat=remat)
-        loss.backward()
+        # rays that require grad share what made them across microbatches
+        loss.backward(retain_graph=ray_grad and i < n_micro - 1)
         loss_sum = loss_sum + loss.detach()
     return loss_sum / n_micro, _grads(leaves, 1.0 / n_micro)
 
 
 def render_loss_and_grad(params, recombine, origins, directions, target,
-                         generator=None, *, n_micro=None, remat=True):
+                         generator=None, *, n_micro=None, remat=True,
+                         graphs=True):
     """(loss, grads) of :func:`render_loss` with respect to ``params``: the
     entry point of custom optimization loops. ``n_micro`` accumulates the
     gradient over that many sequential ray microbatches (exact; it bounds
     the backward pass's memory by one microbatch). ``remat``: per-level
     recompute (see :func:`render_loss`); with enough microbatches to fit
-    memory, ``remat=False`` saves the recompute."""
+    memory, ``remat=False`` saves the recompute. Where the origins or the
+    directions require grad, the backward goes on into them (and so into
+    what made them, e.g. a camera's pose), once per microbatch;
+    ``params`` may then be empty.
+
+    ``graphs=True`` runs each microbatch through a
+    :class:`~raytracer_tpu_torch.core.train_program.TrainProgram`: on cuda,
+    each level's forward and backward replayed as CUDA graphs (captured
+    at first use, found again on later steps); on the CPU, the same steps
+    on the same buffers without capture. ``graphs=False`` runs the eager
+    :func:`render_loss` and ``backward()``, every op launched from the
+    host. Both give the same loss and gradients (bit for bit on the CPU;
+    on cuda the gradients to rounding, see the program's docstring)."""
+    if graphs:
+        loss, grads = _graphed_loss_and_grad(
+            params, recombine, origins, directions, target, generator,
+            n_micro or 1, remat)
+        return loss, {k: torch.zeros_like(params[k]) if g is None else g
+                      for k, g in grads.items()}
     if n_micro is not None and n_micro > 1:
         return _grad_microbatched(params, recombine, origins, directions,
                                   target, generator, n_micro, remat=remat)
@@ -132,15 +160,53 @@ def render_loss_and_grad(params, recombine, origins, directions, target,
     return loss.detach(), _grads(leaves)
 
 
+def _graphed_loss_and_grad(params, recombine, origins, directions, target,
+                           generator, n_micro, remat):
+    """:func:`render_loss_and_grad` through the train program, with the
+    eager path's arithmetic: per-microbatch losses summed and gradients
+    added in order, then scaled by ``1 / n_micro``. A table the render
+    never reaches gets None, as an eager leaf's ``.grad``."""
+    from raytracer_tpu_torch.core.train_program import program_for
+
+    full_f32()
+    n = origins.shape[0]
+    if n % n_micro:
+        raise ValueError(f"batch {n} not divisible by {n_micro} microbatches")
+    m = n // n_micro
+    rays = (origins, directions)
+    ray_grad = tuple(x.requires_grad for x in rays)
+    prog = program_for(params, recombine, m, remat=remat, ray_grad=ray_grad)
+    prog.load(params)
+    loss_sum = torch.zeros((), device=origins.device)
+    total = {}
+    for i in range(n_micro):
+        sl = slice(i * m, (i + 1) * m)
+        loss = prog.forward(origins[sl], directions[sl], target[sl],
+                            generator)
+        grads, g_rays = prog.backward()
+        if any(ray_grad):
+            torch.autograd.backward(
+                [x[sl] for x, need in zip(rays, ray_grad) if need],
+                [g for g, need in zip(g_rays, ray_grad) if need],
+                retain_graph=i < n_micro - 1)
+        loss_sum = loss_sum + loss
+        for k, g in grads.items():
+            if g is not None:
+                total[k] = g.clone() if k not in total else total[k].add_(g)
+    scale = 1.0 if n_micro == 1 else 1.0 / n_micro
+    out = {k: total[k] * scale if k in total else None for k in params}
+    return (loss.clone() if n_micro == 1 else loss_sum / n_micro), out
+
+
 def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,
-               generator=None, n_micro=None, remat=True):
+               generator=None, n_micro=None, remat=True, graphs=True):
     """One SGD step on every float table of :func:`partition_scene`.
-    Returns (loss, the updated scene). ``n_micro``, ``remat``: see
-    :func:`render_loss_and_grad`."""
+    Returns (loss, the updated scene). ``n_micro``, ``remat``, ``graphs``:
+    see :func:`render_loss_and_grad`; the update runs eagerly."""
     params, recombine = partition_scene(scene)
     loss, grads = render_loss_and_grad(
         params, recombine, origins, directions, target, generator,
-        n_micro=n_micro, remat=remat)
+        n_micro=n_micro, remat=remat, graphs=graphs)
     return loss, recombine(_sgd(params, grads, lr))
 
 
@@ -150,7 +216,7 @@ def _sgd(params, grads, lr):
         return {k: p - lr * grads[k] for k, p in params.items()}
 
 
-def make_optim_step(optimizer_factory, *, param_filter=None):
+def make_optim_step(optimizer_factory, *, param_filter=None, graphs=True):
     """A training step over the scene's float tables with a
     ``torch.optim`` optimizer (the JAX package's ``make_optax_step``).
 
@@ -161,7 +227,14 @@ def make_optim_step(optimizer_factory, *, param_filter=None):
     ``(init_fn(scene) -> opt_state, step_fn(scene, opt_state, origins,
     directions, target, generator=None) -> (loss, scene', opt_state'))``.
     ``opt_state`` holds the optimizer and its parameter tensors; a step
-    first loads the values of the scene it is given into them."""
+    first loads the values of the scene it is given into them.
+
+    The render runs with ``remat=True``; ``graphs``: see
+    :func:`render_loss_and_grad`. With ``graphs=True`` the gradient comes
+    from the train program, which copies the parameter tensors' values
+    into its own buffers, and the optimizer's step runs eagerly after it
+    (a table the render never reaches keeps ``.grad`` None, as in the
+    eager step)."""
     def split(scene):
         params, recombine = partition_scene(scene)
         keep = param_filter or (lambda _: True)
@@ -183,27 +256,36 @@ def make_optim_step(optimizer_factory, *, param_filter=None):
             for k, v in train.items():
                 leaves[k].copy_(v)
         opt.zero_grad(set_to_none=True)
-        loss = render_loss({**leaves, **frozen}, recombine, origins,
-                           directions, target, generator)
-        loss.backward()
+        if graphs:
+            loss, grads = _graphed_loss_and_grad(
+                leaves, lambda p: recombine({**p, **frozen}), origins,
+                directions, target, generator, 1, True)
+            for k, v in leaves.items():
+                v.grad = grads[k]
+        else:
+            loss = render_loss({**leaves, **frozen}, recombine, origins,
+                               directions, target, generator)
+            loss.backward()
+            loss = loss.detach()
         opt.step()
         new = {k: v.detach().clone() for k, v in leaves.items()}
-        return loss.detach(), recombine({**new, **frozen}), opt_state
+        return loss, recombine({**new, **frozen}), opt_state
 
     return init_fn, step_fn
 
 
 def make_sharded_train_step(mesh=None, *, lr=1e-2, n_micro=None,
-                            remat=True):
+                            remat=True, graphs=True):
     """A train step over a ray batch split across ranks, the parameters
     replicated (the counterpart of the JAX package's sharded step).
 
     The returned ``step(scene, origins, directions, target, generator=None)
     -> (loss, scene')`` takes this rank's shard of the batch. Each rank
     computes :func:`render_loss_and_grad` on its shard (``n_micro``
-    sequential microbatches of it; ``remat`` as there), then one
-    ``all_reduce`` per mesh dimension (the ranks of a host first, then the
-    hosts; over float64) sums the loss and gradients weighted by the shards'
+    sequential microbatches of it; ``remat`` and ``graphs`` as there), then
+    one ``all_reduce`` per mesh dimension (the ranks of a host first, then
+    the hosts; over float64) sums the loss and gradients weighted by the
+    shards'
     ray counts, so loss and gradients are those of the concatenated global
     batch, on every rank, and every rank applies the same SGD update.
     ``mesh``: a mesh of :mod:`~raytracer_tpu_torch.parallel.mesh` (None: the
@@ -214,7 +296,7 @@ def make_sharded_train_step(mesh=None, *, lr=1e-2, n_micro=None,
         params, recombine = partition_scene(scene)
         loss, grads = render_loss_and_grad(
             params, recombine, origins, directions, target, generator,
-            n_micro=n_micro, remat=remat)
+            n_micro=n_micro, remat=remat, graphs=graphs)
         keys = sorted(grads)
         n = float(origins.shape[0])
         flat = torch.cat([torch.stack([loss.double() * n,

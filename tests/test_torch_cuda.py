@@ -392,3 +392,62 @@ def test_graphed_frames_equal_eager(name):
         render(sc, narrow, quantize=True),
         render(sc, narrow, quantize=True, graphs=False))
     assert TP.program_of(sc) is prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["keep", "remat"])
+@pytest.mark.parametrize("name", ["glass_area", "flagship"])
+def test_graphed_train_step_equals_eager(name, remat):
+    """train_step through the train program (each level's forward and
+    backward replayed as CUDA graphs) against graphs=False, two
+    microbatches: the losses bit-equal, the updated tables within rtol
+    1e-3, atol 1e-5 (``index_add_`` adds in atomic order on the card),
+    the same K1 launches per step; a second step, on a new scene object
+    of new parameter tensors (the same values) and the same frozen
+    tables, as a train step makes, captures nothing new."""
+    _require_cuda()
+    from raytracer_tpu_torch import transforms as tf
+    from raytracer_tpu_torch.camera import Camera, ray_grid
+    from raytracer_tpu_torch.core import train_program as TPG
+    from raytracer_tpu_torch.parallel import partition_scene, train_step
+    from raytracer_tpu_torch.scene import specs as S
+
+    if name == "glass_area":   # K1 in three modes, packed levels, jitter
+        items, _ = scenes.mesh_grad(True)
+        cam = Camera(64, 128, scenes.GRAD_FOV).with_transform(
+            tf.view_transform(scenes.GRAD_EYE, scenes.GRAD_TO,
+                              scenes.GRAD_UP))
+        items = [S.AreaLight(corner=(-3.0, 6.0, -4.0), uvec=(2.0, 0.0, 0.0),
+                             usteps=2, vvec=(0.0, 0.0, 2.0), vsteps=2)
+                 ] + items[1:]
+        sc = build_scene(items, recursion_limit=2, device="cuda")
+    else:
+        items, cam = scenes.flagship(64, 48)
+        sc = build_scene(items, device="cuda")
+    o, d = ray_grid(cam, device="cuda")
+    target = torch.full_like(o, 0.2)
+    TPG.drop_programs()
+    out = {}
+    for graphs in (True, False):
+        MC.reset_launches()
+        g = torch.Generator(device="cuda").manual_seed(3)
+        out[graphs] = (*train_step(sc, o, d, target, lr=0.05, n_micro=2,
+                                   remat=remat, generator=g, graphs=graphs),
+                       MC.launch_counts())
+    (lg, sg, kg), (le, se, ke) = out[True], out[False]
+    assert torch.equal(lg, le)
+    assert kg == ke
+    pg, pe = partition_scene(sg)[0], partition_scene(se)[0]
+    for k in pe:
+        torch.testing.assert_close(pg[k], pe[k], rtol=1e-3, atol=1e-5)
+    (prog,) = TPG.programs()
+    captured = prog.stats["captured"]
+    assert captured == len(prog.graphs) > 0
+    params, recombine = partition_scene(sc)
+    again = recombine({k: v.clone() for k, v in params.items()})
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lg2, _ = train_step(again, o, d, target, lr=0.05, n_micro=2, remat=remat,
+                        generator=g)
+    assert torch.equal(lg2, lg)
+    assert TPG.programs() == [prog] and prog.stats["captured"] == captured
+    assert prog.stats["replays"] > 0
