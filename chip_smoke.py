@@ -6,8 +6,11 @@
 Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit; build the kernels (K1 and its
-   pre-pass K1b) from raytracer_tpu_torch/csrc with nvcc for sm_90a and
-   print ptxas' report.
+   pre-pass K1b, and the tile graph's set_conditionals_kernel) from
+   raytracer_tpu_torch/csrc with nvcc for sm_90a, one nvcc per source,
+   started together, and print ptxas' report; then, on a line of its own,
+   the versions conditional graph nodes depend on (PyTorch, the CUDA it
+   was built with, the runtime, the driver) and whether they are there.
 2. kernel vs plain on the card: random soups (70, 700 triangles), a
    20,000-triangle 3-supergroup stream with mixed caps and any-hit,
    reversed rays, per-triangle det thresholds, the stream at 256 rays (the
@@ -28,11 +31,11 @@ Phases (any failure exits non-zero before the final line):
    the CPU; at most 0.5% of pixels more than one u8 step apart.
 5. full width (the main path, launch counters zeroed just before it):
    dragons_equiv() 1200x480 (1,061,760 triangles), glass_mesh() 640x360,
-   flagship() 1280x720, all depth 4, through render's default path (each
-   tile's levels replayed as CUDA graphs, core/tile_program.py; the
-   warm-up frame captures them): one warm-up frame, the median of 3
-   timed frames, K1 launches per frame by mode (counted from the
-   replays), peak device memory, one PPM each. Then, for the busiest K1
+   flagship() 1280x720, all depth 4, through render's default path (one
+   CUDA graph per tile, core/tile_program.py; the warm-up frame captures
+   it): one warm-up frame, the median of 3 timed frames, K1 launches per
+   frame by mode (counted from the level logs), peak device memory, one
+   PPM each. Then, for the busiest K1
    call of each mode of a mid-frame tile (CUDA events): the call's time,
    its kernel's and its pre-pass's (kernel and torch) times, the CTAs
    launched and slices chosen, the gated ray x triangle tests per ray,
@@ -144,25 +147,35 @@ Phases (any failure exits non-zero before the final line):
    frames in turns (graphed; the unfused frames on a second Scene object
    of the same tables, captured with the unfused function) with each
    one's profiled device time.
-10. the compiled frame: (10a) the dragons tile's first nearest K1 call
-   and its K1b pre-pass, each captured alone in a CUDA graph, replayed on
-   two fresh inputs (the rays moved and turned by a little noise) copied
-   into their static buffers: K1 against the plain version at phase 2's
-   tolerances, K1b exactly. (10b, launch counters zeroed just before and
-   read just after) dragons_equiv, glass_mesh, flagship,
-   cli_csg_area_light (random jitter) and cli_soft_glass, graphed
-   (render's default) against graphs=False in turns: a warm-up of each,
-   then 3 pairs of u8 frames and one pair of f32 frames, every pair bit
-   for bit equal; s/frame of each side, the program's graphs and capture
-   seconds, syncs per frame, K1 launches per frame by mode (the graphed
-   side's counted from replays, equal to eager's), peak device memory of
-   each side and the graph pool's bytes; only the graphed frames'
-   launches join the kernels line, the eager control's are logged apart.
-   (10c) one graphed and one eager dragons_equiv frame under
-   torch.profiler: device busy, idle share, the host's cudaGraphLaunch
-   and cudaLaunchKernel calls, and the device events of K1's walk (by
-   template) and of K1b, which must equal the launch counters' deltas
-   over the same frame.
+10. the compiled frame, one CUDA graph per tile with the level skip and
+   the packed widths taken on the card by conditional nodes: (10a) the
+   dragons tile's first nearest K1 call and its K1b pre-pass, each
+   captured alone in a CUDA graph, replayed on two fresh inputs (the rays
+   moved and turned by a little noise) copied into their static buffers:
+   K1 against the plain version at phase 2's tolerances, K1b exactly;
+   set_conditionals_kernel in a toy tile graph of four IF nodes against
+   the host's choice of branch on the same flags (exactly), timed. (10b,
+   launch counters zeroed just before and read just after)
+   dragons_equiv, glass_mesh, flagship, cli_csg_area_light (random
+   jitter) and cli_soft_glass, graphed (render's default) against
+   graphs=False in turns: a warm-up of each, then 3 pairs of u8 frames
+   and one pair of f32 frames, every pair bit for bit equal; s/frame of
+   each side, the parts captured and the conditional bodies among them,
+   capture seconds, tile graph launches and host syncs per graphed frame
+   (one launch per tile and one sync, or the phase fails), K1 launches
+   per frame by mode (the graphed side's counted from the level logs,
+   equal to eager's), peak device memory of each side, the graph pool's
+   bytes and allocated + pool against eager's peak; only the graphed
+   frames' launches join the kernels line, the eager control's are
+   logged apart. (10c) one graphed and one eager dragons_equiv frame
+   under torch.profiler: device busy, idle share, the host's graph
+   launches, kernel launches and stream syncs, and the device events of
+   K1's walk (by template) and of K1b, which must equal the launch
+   counters' deltas over the same frame. (10d, in a process of its own,
+   where no profiler has run) three graphed dragons frames on the host's
+   clock, split into set-up, enqueue, the wait for the frame's one sync
+   and the host's scatter of the pixels, and the host's time in one tile
+   graph launch, alone and back to back.
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object with the kernels' numbers (launches: the main-path runs
@@ -181,6 +194,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -495,7 +509,7 @@ def profile_run(fn, s_unprofiled, count_kernels=()):
     kern.sort(key=lambda e: -e.self_device_time_total)
     host_api = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CPU
-                and e.key.startswith("cuda")}
+                and e.key.startswith("cu")}
     return dict(
         profiled_wall_s=wall, device_busy_s=busy_us / 1e6 if kern else None,
         device_idle_share=(1 - busy_us / 1e6 / s_unprofiled) if kern
@@ -505,7 +519,8 @@ def profile_run(fn, s_unprofiled, count_kernels=()):
                   count=e.count) for e in kern[:8]],
         host_api=host_api,
         host_launches=sum(host_api.get(k, 0) for k in (
-            "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")),
+            "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+            "cuLaunchKernel", "cuLaunchKernelEx", "cuGraphLaunch")),
         kernel_events={s: sum(e.count for e in kern if s in e.key)
                        for s in count_kernels},
     )
@@ -2051,18 +2066,22 @@ def graph_pool_bytes(prog):
 
 
 def compiled_cell(mc, label, scene, cam):
-    """10b: one cell's frames through the graphed tile program and through
-    the eager loop (graphs=False), in turns after a warm-up of each:
-    3 pairs of u8 frames (graphed first, eager first, graphed first) and
-    one pair of f32 frames, every pair bit-equal. s/frame of each side,
-    the program's graphs and capture seconds (since it was made), syncs
-    per frame (the live-count reads, which the eager loop makes too, and
-    the frame's one copy to the host), K1 launches per frame by mode
-    (graphed: as replays count them; must equal eager's), peak device
-    memory of each side and the program's graph pool. Every render call
-    reads the launch counters before and after it: ``launches`` holds each
-    side's totals over all its frames (warm-up included), kept apart, so
-    that only the graphed side's join the kernels line."""
+    """10b: one cell's frames through the graphed tile program (one CUDA
+    graph launch per tile, the level skip and the widths taken on the
+    card) and through the eager loop (graphs=False), in turns after a
+    warm-up of each: 3 pairs of u8 frames (graphed first, eager first,
+    graphed first) and one pair of f32 frames, every pair bit-equal.
+    s/frame of each side; the program's parts captured (graphs), of them
+    conditional bodies, and the seconds the warm-up, capture and
+    instantiation took; tile graph launches and host syncs per graphed
+    frame (the program's ``frame_stats``: one launch per tile, one sync,
+    the frame's copy to the host); K1 launches per frame by mode (graphed:
+    counted from the level logs; must equal eager's); peak device memory
+    of each side and the program's graph pool, and allocated + pool
+    against eager's peak. Every render call reads the launch counters
+    before and after it: ``launches`` holds each side's totals over all
+    its frames (warm-up included), kept apart, so that only the graphed
+    side's join the kernels line."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
@@ -2089,8 +2108,7 @@ def compiled_cell(mc, label, scene, cam):
     prog = TP.program_of(scene)
     res = {"graphed": dict(s=[], k1={}, peak_allocated=0),
            "eager": dict(s=[], k1={}, peak_allocated=0)}
-    syncs0 = prog.stats["syncs"]
-    frames = {}
+    frames, per_frame = {}, []
     for graphs_first in (True, False, True):
         for graphs in ((True, False) if graphs_first else (False, True)):
             side = res["graphed" if graphs else "eager"]
@@ -2104,7 +2122,8 @@ def compiled_cell(mc, label, scene, cam):
                 side["k1"][k] = side["k1"].get(k, 0) + (
                     mc.mesh_nearest.launches_by_mode[k] - before[k])
             frames.setdefault(graphs, []).append(img)
-    live_reads = (prog.stats["syncs"] - syncs0) / 3
+            if graphs:
+                per_frame.append(dict(prog.frame_stats))
     u8_differ = [int((a != b).any(-1).sum())
                  for a, b in zip(frames[True], frames[False])]
     f32 = {g: run(g, quantize=False)[0] for g in (True, False)}
@@ -2112,13 +2131,19 @@ def compiled_cell(mc, label, scene, cam):
     for side in res.values():
         side["k1"] = {k: v / 3 for k, v in side["k1"].items()}
         side["s_per_frame"] = statistics.median(side["s"])
+    tiles = -(-cam.hsize * cam.vsize // prog.tile)
+    pool = graph_pool_bytes(prog)
     res.update(
         u8_pixels_differing=u8_differ, f32_pixels_differing=f32_differ,
-        graphs=len(prog.graphs), graphs_captured=prog.stats["captured"],
-        capture_s=prog.stats["capture_s"], warm_graphed_s=warm_graphed_s,
-        live_reads_per_frame=live_reads, syncs_per_frame=live_reads + 1,
-        tiles=-(-cam.hsize * cam.vsize // prog.tile), launches=launches,
-        graph_pool_bytes=graph_pool_bytes(prog),
+        graphs=len(prog.graphs), bodies=prog.stats["bodies"],
+        tile_graphs=len(prog.tiles), capture_s=prog.stats["capture_s"],
+        warm_graphed_s=warm_graphed_s, tiles=tiles,
+        replays_per_frame=per_frame[-1]["replays"],
+        syncs_per_frame=per_frame[-1]["syncs"], launches=launches,
+        graph_pool_bytes=pool,
+        allocated_plus_pool_over_eager=(res["graphed"]["peak_allocated"]
+                                        + pool)
+        / res["eager"]["peak_allocated"],
         graphed_over_eager=res["graphed"]["s_per_frame"]
         / res["eager"]["s_per_frame"])
     log(f"  [10b] {label}: {json.dumps(res)}")
@@ -2129,6 +2154,75 @@ def compiled_cell(mc, label, scene, cam):
         raise AssertionError(f"{label}: K1 launches per frame, graphed "
                              f"{res['graphed']['k1']} vs eager "
                              f"{res['eager']['k1']}")
+    if any(f != dict(tiles=tiles, replays=tiles, syncs=1)
+           for f in per_frame):
+        raise AssertionError(f"{label}: graphed frames were not one tile "
+                             f"graph launch per tile and one sync: "
+                             f"{per_frame} ({tiles} tiles)")
+    return res
+
+
+def conditionals_check(gc):
+    """10a: set_conditionals_kernel on a toy level, a tile graph of four
+    IF nodes whose bodies each write their mark, against its plain
+    version, the host's choice (``render.taken_branch``) of the same
+    flags: for each of 9 flag settings (none, each branch, twice over)
+    exactly the flagged branch must run. Its time per launch of that
+    graph (CUDA events, 200 launches), the plain version's (flags read on
+    the host, then the chosen body's graph replayed; host clock over 200
+    decisions) and the bound (the 16 bytes of flags read once). Returns
+    the kernels line's numbers (max_abs_err: branches that disagree)."""
+    import torch
+
+    from raytracer_tpu_torch.core.render import taken_branch
+
+    out = torch.zeros(4, dtype=torch.int32, device="cuda")
+    flags = torch.zeros(4, dtype=torch.int32, device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    bodies = []
+    for k in range(4):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool)
+            out[k].fill_(k + 1)
+            g.capture_end()
+        g.instantiate()
+        bodies.append(g)
+    tg = gc.TileGraph([(flags, bodies)])
+    wrong = 0
+    for k in (None, 0, 1, 2, 3, 3, 2, 1, 0):
+        flags.zero_()
+        out.zero_()
+        if k is not None:
+            flags[k] = 1
+        tg.launch()
+        want = taken_branch(flags.cpu())
+        got = [j for j, x in enumerate(out.cpu().tolist()) if x]
+        wrong += got != ([] if want is None else [want])
+    flags.zero_()
+    flags[2] = 1
+    ms = cuda_ms(tg.launch, 200)
+
+    def plain():
+        k = taken_branch(flags.cpu())
+        if k is not None:
+            bodies[k].replay()
+
+    plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    res = dict(max_abs_err=float(wrong), ms=ms, plain_ms=plain_ms,
+               bound_ms=flags.numel() * 4 / PEAK_BYTES_PER_S * 1e3,
+               bound_by="bytes", library_ms=None)
+    log(f"  [10a] set_conditionals_kernel on a toy level of 4 branches vs "
+        f"the host's choice: {json.dumps(res)}")
+    if wrong:
+        raise AssertionError(f"set_conditionals: {wrong} launches ran "
+                             f"other branches than the flags say")
     return res
 
 
@@ -2143,9 +2237,10 @@ PROFILED_KERNELS = {"mesh_walk_kernel<false>": ("nearest", "behind"),
 def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
     """10c: one dragons_equiv frame under torch.profiler (after the
     phase's counts are read): device busy, idle share and the host's
-    runtime calls, and the profiler's device events of K1's and K1b's
-    kernels against the launch counters' deltas over the same frame
-    (graphed: as replays count them), which must be equal."""
+    runtime calls (graph launches and stream syncs among them), and the
+    profiler's device events of K1's and K1b's kernels against the launch
+    counters' deltas over the same frame (graphed: counted from the level
+    logs), which must be equal."""
     from raytracer_tpu_torch.core import render as R
 
     before = mc.launch_counts()
@@ -2163,21 +2258,101 @@ def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
     return prof
 
 
-def compiled_phase(mc, d_calls, cells):
-    """Phase 10, the compiled frame: 10a K1 and K1b captured alone (before
-    the counters are zeroed), then the five cells graphed against eager
-    (counters zeroed just before, read just after; the kernels line takes
-    the graphed frames' launches only, the eager control's are logged
-    apart), then one graphed and one eager dragons frame under
-    torch.profiler."""
+def host_breakdown(reps=3):
+    """10d, in a process of its own (``--host-breakdown``), where no
+    torch.profiler has run: once the profiler has traced the card, CUPTI
+    stays attached and every later graph launch costs the host
+    milliseconds. dragons_equiv is built and one graphed frame captures
+    its program; then ``reps`` graphed frames on the host's clock, split
+    as ``render`` spends it: set-up (the pixel ids in block order, their
+    upload and the camera's), enqueue (``frame``: per tile the ids' copy,
+    the jitter draws, one graph launch and two copies), wait
+    (``to_host``: the frame's one sync) and the host's scatter of the
+    pixels into the image (medians, s); ``render``'s own s/frame over
+    ``reps`` frames (median); the host's time in one launch of the u8
+    tile graph alone after a sync (median of 10, ms), and in 36 launches
+    back to back (the first 3 and the last 3, ms: a launch waits once the
+    card's queue is full)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.scene import build_scene
+
+    items, cam = scenes.dragons_equiv()
+    scene = build_scene(items, device="cuda")
+    R.render(scene, cam, quantize=True)
+    prog = TP.program_of(scene)
+    n = cam.hsize * cam.vsize
+    parts = {k: [] for k in ("setup", "enqueue", "wait", "scatter")}
+    frames = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R.render(scene, cam, quantize=True)
+        frames.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        order, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, prog.tile,
+                                          scene.device)
+        inv, consts = R.camera_consts(cam, scene.device)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            frame = prog.frame(scene, inv, consts, cam.hsize, idx_tiles,
+                               True, None)
+        t2 = time.perf_counter()
+        img = prog.to_host(frame).numpy()[:n]
+        t3 = time.perf_counter()
+        out = np.empty_like(img)
+        out[order] = img
+        t4 = time.perf_counter()
+        for k, a, b in (("setup", t0, t1), ("enqueue", t1, t2),
+                        ("wait", t2, t3), ("scatter", t3, t4)):
+            parts[k].append(b - a)
+    res = {k: statistics.median(v) for k, v in parts.items()}
+    res["total"] = sum(res.values())
+    res["render_s_per_frame"] = statistics.median(frames)
+    tg = prog.tiles[True]
+    alone, in_row = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tg.launch()
+        alone.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    for _ in range(36):
+        t0 = time.perf_counter()
+        tg.launch()
+        in_row.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    res.update(launch_alone_ms=statistics.median(alone) * 1e3,
+               launches_in_row_ms=in_row[:3] + in_row[-3:])
+    return res
+
+
+def compiled_phase(mc, gc, d_calls, cells):
+    """Phase 10, the compiled frame: 10a K1 and K1b captured alone and
+    set_conditionals_kernel on a toy level (before the counters are
+    zeroed), then the five cells graphed against eager (counters zeroed
+    just before, read just after; the kernels line takes the graphed
+    frames' launches only, the eager control's are logged apart), then
+    one graphed and one eager dragons frame under torch.profiler."""
     log("[10] the compiled frame")
     call = next(c for c in d_calls if mode_of(c) == "nearest")
     out = {}
     out["alone_max_err"], out["alone_pre_err"] = captured_alone(mc, call)
-    log("  (K1 launch counters zeroed)")
+    out["conditionals"] = conditionals_check(gc)
+    log("  (K1 and set_conditionals launch counters zeroed)")
     mc.reset_launches()
+    gc.set_conditionals_launches = 0
     out["cells"] = {label: compiled_cell(mc, label, scene, cam)
                     for label, (scene, cam) in cells.items()}
+    out["cond_launches"] = gc.set_conditionals_launches
+    log(f"  set_conditionals_kernel launches of phase 10's graphed frames: "
+        f"{out['cond_launches']}")
+    if out["cond_launches"] == 0:
+        raise AssertionError("phase 10 launched no set_conditionals_kernel")
     read = mc.launch_counts()
     sides = {g: {k: sum(c["launches"][g][k] for c in out["cells"].values())
                  for k in read} for g in ("graphed", "eager")}
@@ -2203,6 +2378,16 @@ def compiled_phase(mc, d_calls, cells):
             out["cells"]["dragons_equiv"][side]["s_per_frame"])
     log(f"  [10c] one dragons_equiv frame under torch.profiler, graphed and "
         f"eager: {json.dumps(out['profile'])}")
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--host-breakdown"],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"10d's process failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out["host_breakdown"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  [10d] graphed dragons_equiv frames on the host's clock, in a "
+        f"process where no profiler ran (s, medians of 3): "
+        f"{json.dumps(out['host_breakdown'])}")
     return out
 
 
@@ -2210,6 +2395,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(HERE / "build" / "chip_smoke"),
                     help="directory for the PPMs and the numbers")
+    ap.add_argument("--host-breakdown", action="store_true",
+                    help="only phase 10d's host-clock breakdown of graphed "
+                         "dragons_equiv frames, as one JSON line (phase 10 "
+                         "runs it in a process of its own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2221,6 +2410,9 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    if args.host_breakdown:
+        print(json.dumps(host_breakdown()))
+        return 0
     import numpy as np
 
     from raytracer_tpu_torch import scenes
@@ -2228,6 +2420,7 @@ def main(argv=None):
     from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core.render import color_at, render
     from raytracer_tpu_torch.mesh_cases import TIE_INDEX
+    from raytracer_tpu_torch.ops import graph_cuda as GC
     from raytracer_tpu_torch.ops import mesh_cuda as MC
     from raytracer_tpu_torch.scene import build_scene, specs as S
     from raytracer_tpu_torch.scene.yaml_scene import parse_scene
@@ -2252,11 +2445,23 @@ def main(argv=None):
     log(f"[1] device: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib_path, build_log = MC.build_library()
-    log(f"  built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        builds = [pool.submit(m.build_library) for m in (MC, GC)]
+        (lib_path, build_log), (tg_path, _) = [b.result() for b in builds]
+    log(f"  built {lib_path.name} and {tg_path.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "error")):
             log("  ptxas:", line.strip())
+    support = GC.versions()
+    try:
+        GC.check_support()
+        support["conditional_nodes"] = True
+    except RuntimeError:
+        support["conditional_nodes"] = False
+    log(f"  conditional graph nodes: {json.dumps(support)}")
+    if not support["conditional_nodes"]:
+        raise AssertionError(f"no CUDA graph conditional nodes: {support}")
 
     lap(1)
 
@@ -2431,7 +2636,7 @@ def main(argv=None):
              [str(out_dir / "teapot.obj")])):
         cam, sc = parse_scene(text, obj_files=objs, device=dev)
         cells[label] = (sc, cam)
-    p10 = compiled_phase(MC, d_calls, cells)
+    p10 = compiled_phase(MC, GC, d_calls, cells)
     del cells
     launches += p10.pop("launches")
     pre_launches += p10.pop("pre_launches")
@@ -2467,6 +2672,13 @@ def main(argv=None):
         "bound_ms": main_k1["prepass_bound_ms"],
         "bound_by": main_k1["prepass_bound_by"],
         "library_ms": None,
+    }, {
+        "name": "set_conditionals",
+        "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/tile_graph.cu",
+        "replaces": "raytracer_tpu/core/render.py:338",
+        "launches": p10.pop("cond_launches"),
+        **p10["conditionals"],
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,

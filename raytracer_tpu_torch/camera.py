@@ -78,6 +78,15 @@ def ray_grid(camera: Camera, device="cuda"):
     return as_t(origins), as_t(directions)
 
 
+def ray_for_pixel(camera: Camera, px: int, py: int):
+    """Single-ray reference helper (camera.rs:45-64) for tests: the
+    (origin, direction) of pixel (px, py), numpy f32 [3] each, as
+    :func:`ray_grid` makes them (``raytracer_tpu.camera.ray_for_pixel``)."""
+    origins, directions = ray_grid(camera, device="cpu")
+    idx = py * camera.hsize + px
+    return origins[idx].numpy(), directions[idx].numpy()
+
+
 def _mat4_rows(a, b):
     """a [n, 4] x b [4, 4]^T (rows of a through b), as sums of elementwise
     products: no matmul, so no TF32 path rounds the camera."""

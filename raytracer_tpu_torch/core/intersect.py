@@ -418,6 +418,22 @@ def _tri_behind(scene: T.Scene, origins, directions):
     return torch.where(torch.isfinite(t), -t, -INF), gid
 
 
+def sorted_hits(scene: T.Scene, origins, directions, k: int = 12):
+    """The reference's sorted Intersections list, truncated to ``k``.
+
+    TEST ORACLE ONLY: the production path never sorts (see first_hit);
+    this mirrors intersections.rs:66-73 for the book-value tests
+    (``raytracer_tpu/core/intersect.py:912``). Returns (ts, gid, u, v),
+    each [R, K], ascending by t (ties in column order), +inf padded.
+    """
+    ts, gid, u, v = candidate_hits(scene, origins, directions)
+    # the behind column's "none" sentinel is -inf: a miss here
+    ts = torch.where(torch.isneginf(ts), INF, ts)
+    k = min(k, ts.shape[-1])
+    order = torch.argsort(ts, dim=-1, stable=True)[:, :k]
+    return tuple(torch.gather(x, -1, order) for x in (ts, gid, u, v))
+
+
 def candidate_hits(scene: T.Scene, origins, directions):
     """All candidate intersections of a ray batch against the whole scene.
 

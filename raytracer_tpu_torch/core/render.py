@@ -22,10 +22,14 @@ Reference semantics preserved deliberately:
 Random jitter. Without a deterministic sequence, every area light of every
 level of every tile draws ``torch.rand((R, S, 4))`` from ONE
 ``torch.Generator`` on the scene's device: tiles in order, within a tile
-the levels in order (a level that does not run draws nothing), within a
-level the area lights in order, all before the level's shading
-(:func:`draw_jitter`). ``render`` and ``color_at`` take
-``generator=None``, which means a generator seeded with 0 (the JAX
+every level from 0 to the last (:func:`level_rows`) in order, at the
+level's whole width R whether the level runs or not, within a level the
+area lights in order (:func:`draw_jitter`). A packed level shades the
+first ``width`` rows of its draws. The rule does not depend on which
+levels run or at what width, so the tile program, whose graph takes
+those decisions on the card, draws a tile's jitter before it runs.
+``render`` and ``color_at`` take ``generator=None``, which means a
+generator seeded with 0 (the JAX
 package's default is ``PRNGKey(0)``). The stream is not JAX's threefry,
 and torch's CPU and CUDA generators give different streams for one seed,
 so seeded frames agree with the JAX package (and across devices) in
@@ -34,17 +38,19 @@ distribution, not pixel for pixel.
 Live-ray compaction. Deep levels of mesh and area-light scenes are mostly
 parked rays, so ``color_at`` sorts a level's live rays to the front and
 shades only the narrowest of R/16, R/4, R/2 or R rows that holds them
-(:func:`_packed_shade_level`, the JAX package's rule and widths). The width
-is a host decision, read in the same sync as the whole-level skip; the JAX
-package's ``lax.cond`` chain takes that place there.
+(:func:`_packed_shade_level`, the JAX package's rule and widths). In
+:func:`color_at` the width is a host decision, read in the same sync as
+the whole-level skip.
 
 The compiled frame. ``render`` runs each tile through
 ``core/tile_program.TileProgram``, the counterpart of the JAX package's
 ``_tile_color_jit``/``_render_frame_jit``: the level steps below
 (:func:`shade_step`, :func:`accumulate`, :func:`spawn_step`,
-:func:`finish_step`), each (level, width) captured once as a CUDA graph
-on the card and replayed. ``render(..., graphs=False)`` and
-:func:`color_at` run the same steps eagerly.
+:func:`finish_step`) in one CUDA graph per tile, in which the level skip
+and the packed width are taken on the card by conditional nodes on
+:func:`level_predicates`, the counterpart of the JAX package's
+``lax.cond`` chain. ``render(..., graphs=False)`` and :func:`color_at`
+run the same steps eagerly.
 
 Not ported: the JAX package's ``_max_mesh_tile`` clamp, which sizes tiles
 to the TPU's 1 MB of scalar memory; K1's pre-pass tables live in global
@@ -146,9 +152,10 @@ def draws_jitter(static: T.SceneStatic) -> bool:
 def draw_jitter(scene, rows: int, generator, out=None):
     """A level's random area-light jitter: one ``torch.rand((rows, S, 4))``
     per area light, in light order, from ``generator`` (into ``out``'s
-    tensors when given). None when the scene draws none. Every level draws
-    here, before its shading, so the eager loop and the tile program
-    consume one stream in one order."""
+    tensors when given). None when the scene draws none. Every level of a
+    batch draws here at its whole width, in level order, run or not (see
+    the module docstring), so the eager loop, the tile program and the
+    train program consume one stream in one order."""
     if not draws_jitter(scene.static):
         return None
     if out is None:
@@ -340,8 +347,9 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
     count, which the caller has read). The rows past the live rays are
     parked padding. Each ray's result does not depend on its batch or its
     neighbours (K1's gates are conservative), so this is exact; the
-    area-light ``jitter`` is drawn at ``(width, S, 4)``, so a seeded frame
-    agrees with the full-width one in distribution.
+    sorted rays shade the first ``width`` rows of the level's area-light
+    ``jitter`` (drawn at ``(R, S, 4)``), so a seeded frame agrees with the
+    full-width one in distribution.
 
     Returns shade_level's outputs at R rows, in the rays' own order; with
     ``thread_perm``, in the sorted order instead, plus the permutation
@@ -351,6 +359,8 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
     live = (w > 0.0).any(-1)
     order = torch.argsort((~live).to(torch.uint8), stable=True)
     sel = order[:width]
+    if jitter is not None:
+        jitter = tuple(j[:width] for j in jitter)
     colored, refl, refr = shade_level(scene, o[sel], d[sel], w[sel],
                                       jitter)
     out = [colored]
@@ -382,13 +392,62 @@ def packs(static: T.SceneStatic, r: int) -> bool:
 
 # The level steps. color_at's loop and core/tile_program.TileProgram run
 # these same functions: the eager loop level by level, the program as one
-# CUDA graph per (level, width).
+# CUDA graph per tile, each (level, width) the body of a conditional node.
 
 def level_width(static: T.SceneStatic, rows: int, n_live: int):
     """The width a level of ``rows`` rays, ``n_live`` of them live, is
     shaded at: :func:`_packed_width` where :func:`packs` holds, else None
     (the whole level, unsorted)."""
     return _packed_width(rows, n_live) if packs(static, rows) else None
+
+
+def level_branches(static: T.SceneStatic, rows: int) -> tuple:
+    """The widths a level of ``rows`` rays may take, one conditional body
+    each: R/16, R/4, R/2 and R where :func:`packs` holds, else (None,),
+    the whole level."""
+    if packs(static, rows):
+        return rows // 16, rows // 4, rows // 2, rows
+    return (None,)
+
+
+def level_predicates(static: T.SceneStatic, rows: int, live):
+    """Which branch of :func:`level_branches` a level of ``rows`` rays
+    takes, from its live count ``live`` (an int64 tensor, on the device or
+    not): int32 flags [..., n_branches], at most one set, none when
+    ``live`` is 0. The flag of width W is ``live > 0 and
+    _packed_width(rows, live) == W``: :func:`level_width` in tensor ops,
+    so that a CUDA graph computes it on the card (the JAX package's
+    ``lax.cond`` chain on ``jnp.any(w > 0)`` and the live count). The
+    tile program's conditional nodes read these flags; on the CPU it
+    reads them on the host (:func:`taken_branch`)."""
+    branches = level_branches(static, rows)
+    alive = live > 0
+    if branches == (None,):
+        return alive[..., None].to(torch.int32)
+    q, h = rows // 4, rows // 2
+    width = torch.where(live <= rows // 16, rows // 16, torch.where(
+        live <= q, q, torch.where(live <= h, h, rows)))
+    return torch.stack([alive & (width == w) for w in branches],
+                       -1).to(torch.int32)
+
+
+def taken_branch(flags) -> int | None:
+    """The index of the set flag of :func:`level_predicates` ([n], read on
+    the host), or None when the level is skipped."""
+    hits = [k for k, f in enumerate(flags.tolist()) if f]
+    if len(hits) > 1:
+        raise AssertionError(f"level predicates not exclusive: {flags}")
+    return hits[0] if hits else None
+
+
+def level_rows(static: T.SceneStatic, rows: int, limit: int) -> list:
+    """Rays of each level that may run, from level 0 (``rows``) to the
+    last: ``limit`` in a scene that spawns, else 0."""
+    out = [rows]
+    if spawns(static):
+        for _ in range(limit):
+            out.append(spawn_rows(static, out[-1]))
+    return out
 
 
 def shade_step(scene: T.Scene, o, d, w, jitter, *, width, thread_perm):
@@ -504,9 +563,11 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
 
     Levels after the first are compacted where :func:`packs` says so
     (:func:`_packed_shade_level`): the live count, read once per level for
-    the skip, picks the width. Without a blend material the level width
-    stays R, so the packed levels keep their outputs in sorted order, the
-    image follows, and the composed permutation is undone once at the end
+    the skip, picks the width (:func:`level_width`). Every level draws its
+    jitter at its whole width, run or not (see the module docstring).
+    Without a blend material the level width stays R, so the packed
+    levels keep their outputs in sorted order, the image follows, and the
+    composed permutation is undone once at the end
     (``thread_perm``); blend scenes, whose levels double by concatenation,
     un-permute each level.
 
@@ -533,15 +594,17 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     # levels that keep their outputs sorted; img follows the slot order
     perm = None
     thread_perm = not st.has_blend
-    for level in range(limit + 1):
+    rows = level_rows(st, r, limit)
+    drawn = 0
+    for level in range(len(rows)):
         width = None
         if level > 0:
             n_live = int(live_count(w))   # the level's one sync
             if n_live == 0:
                 break
-            width = level_width(st, o.shape[0], n_live)
-        jitter = draw_jitter(scene, o.shape[0] if width is None else width,
-                             generator)
+            width = level_width(st, rows[level], n_live)
+        jitter = draw_jitter(scene, rows[level], generator)
+        drawn += 1
         step = functools.partial(shade_step, width=width,
                                  thread_perm=thread_perm)
         if remat:
@@ -549,9 +612,11 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
         else:
             colored, refl, refr, order = step(scene, o, d, w, jitter)
         img, perm = accumulate(img, perm, colored, order)
-        if level == limit or not spawns(st):
+        if level == len(rows) - 1:
             break
         o, d, w = spawn_step(st, refl, refr)
+    for n in rows[drawn:]:      # the levels not run draw theirs too
+        draw_jitter(scene, n, generator)
     return finish_step(img, perm)
 
 
@@ -661,11 +726,12 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
 
     ``graphs=True`` runs each tile through the scene's
     :class:`~raytracer_tpu_torch.core.tile_program.TileProgram`: on cuda,
-    its levels replayed as CUDA graphs (captured at first use); on the
-    CPU, the same steps on the same buffers without capture.
-    ``graphs=False`` runs :func:`color_at` tile by tile, every op launched
-    from the host. Both give the same frame bit for bit. The frame
-    crosses to the host once.
+    one CUDA graph launch per tile (captured at first use), its level skip
+    and packed widths taken on the card, nothing read back until the
+    frame; on the CPU, the same steps on the same buffers without
+    capture. ``graphs=False`` runs :func:`color_at` tile by tile, every op
+    launched from the host, one live-count read per level. Both give the
+    same frame bit for bit. The frame crosses to the host once.
 
     Matmuls and convolutions are held to full f32 (:func:`full_f32`).
     """
@@ -684,16 +750,17 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
         if graphs:
             from raytracer_tpu_torch.core.tile_program import program_for
             prog = program_for(scene, tile, limit)
-            frame = prog.frame(scene, inv, consts, camera.hsize, idx_tiles,
-                               quantize, generator)
+            frame = prog.to_host(prog.frame(
+                scene, inv, consts, camera.hsize, idx_tiles, quantize,
+                generator))
         else:
             outs = []
             for idx in idx_tiles:
                 o, d = _primary_rays(inv, consts, idx, camera.hsize)
                 c = color_at(scene, o, d, limit, generator)
                 outs.append(quantize_u8(c) if quantize else c)
-            frame = torch.cat(outs)
-        img = frame.cpu().numpy()[:n]
+            frame = torch.cat(outs).cpu()
+        img = frame.numpy()[:n]
     out = np.empty_like(img)
     out[order] = img
     return out.reshape(camera.vsize, camera.hsize, 3)

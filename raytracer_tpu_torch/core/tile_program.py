@@ -1,48 +1,73 @@
-"""The compiled frame: a tile's levels replayed as CUDA graphs.
+"""The compiled frame: one CUDA graph per tile, the level skip and the
+packed width taken on the card by conditional nodes.
 
 Counterpart of the JAX package's ``_tile_color_jit`` and
 ``_render_frame_jit`` (``raytracer_tpu/core/render.py:516-562``). There a
-tile, and a ``lax.scan`` over a segment of tiles, is one compiled device
-program, so a frame costs a handful of dispatches. PyTorch runs op by op;
-its counterpart of a compiled program is a CUDA graph. A
-:class:`TileProgram` runs a tile as
+segment of tiles is one compiled device program, a ``lax.scan`` over the
+tiles, in which each level is skipped or run by a ``lax.cond`` on its
+live rays (``:413-433``) and a packed level's width comes from a
+``lax.cond`` chain on the live count (``_packed_shade_level``,
+``:338-348``). PyTorch's counterpart of a compiled program is a CUDA
+graph, and of ``lax.cond`` a conditional graph node (CUDA 12.4 or later).
+A :class:`TileProgram` runs a tile as one graph:
 
-1. one graph for the primary rays plus level 0 (``render.tile_rays``, the
-   shade, the spawn merge and ``park_rays``), which also writes the next
-   level's live count into a device scalar;
-2. for each level L >= 1: the host reads that live count (the level's one
-   sync, where ``render.color_at`` reads it too), then stops at 0 or
-   replays the graph of (L, width), the width from ``render.level_width``
-   (a packed width, or the level's whole width);
-3. one graph that undoes the composed permutation of the packed levels,
-   quantizes if asked and leaves the tile in a buffer, which ``frame``
-   copies into the frame on the device.
+1. level 0: the primary rays (``render.tile_rays``), the shade, the spawn
+   merge and the next level's live count, in a device scalar;
+2. for each level L from 1 to the limit, where the scene spawns: the
+   flags of ``render.level_predicates`` from the live count, one per
+   branch of ``render.level_branches`` (the widths R/16, R/4, R/2 and R
+   where the level packs, else the whole level); the kernel that copies
+   them into the conditional handles; then one IF node per branch, at
+   most one of them run, whose body is ``render.level_step`` at that
+   width on the level's buffers. A level whose live count is 0 runs no
+   body and leaves the count 0, so every later level is skipped too;
+3. the finish: the composed permutation of the packed levels undone,
+   quantized if asked, into the tile buffer.
 
-The JAX package takes the level skip and the width on the device
-(``lax.cond``); here the host takes them between graphs, at most one sync
-per level, as the eager loop does.
+``frame`` enqueues per tile the copy of its pixel ids, the draws of its
+jitter, one launch of the tile graph and the copies of the tile and of
+its level log into the frame's buffers. Nothing is read back until the
+frame crosses to the host (:meth:`TileProgram.to_host`), its level logs in
+the same sync.
 
-Every graph reads and writes static buffers only: the camera (``inv``,
-``consts``) and the frame's width (``hsize``), the tile's pixel ids, o/d/w at each level width, the image
-accumulator, ``perm``, the live count, the jitter and the tile. A graph
-is captured the first time its (level, width) occurs: that first
-occurrence runs eagerly on the program's side stream (K1's shared-memory
-attribute, cuBLAS and the sort's scratch initialise there) and commits
-its results, then the same function is captured, which runs nothing.
-Every tensor a graph makes dies inside its capture, so all the program's
-graphs share one memory pool and may replay in any order; never two at
-once (one stream). The random area-light jitter is drawn eagerly into its
-buffer before each level, from the caller's generator, in the order
-``color_at`` draws it: graphed and eager frames are equal bit for bit.
+Each part (level 0, a level's predicates, each branch of each level, the
+finish) is captured by PyTorch as a graph of its own that keeps its
+``cudaGraph_t``, and ``ops/graph_cuda.TileGraph`` chains them, the
+branches as the bodies of IF nodes. The parts are captured the first time
+a tile runs (the finish and the tile graph once per ``quantize``): first
+each runs once eagerly on the program's side stream (K1's shared-memory
+attribute, cuBLAS and the sort's scratch initialise there); level 0 and
+the predicates commit their results, a branch commits nothing, since at a
+width narrower than the live count it computes wrong rays. Then each is
+captured, which runs nothing. Every tensor a part makes dies inside its
+capture, so all the parts share one memory pool.
 
-Replays run kernels that the Python launch counters of
-``ops/mesh_cuda`` never see, so each graph records its K1 and K1b
-launches (by mode) at capture, takes them back off the counters (a
-capture launches nothing) and adds them on every replay.
+Every part reads and writes static buffers only: the camera (``inv``,
+``consts``), the frame's width (``hsize``), the tile's pixel ids, o/d/w
+at each level's width, the image accumulator, ``perm``, the live count,
+each level's flags and jitter, the level log and the tile. The random
+area-light jitter is drawn before each tile, from the caller's generator,
+into every level's buffer at the level's whole width, run or not
+(``render.draw_jitter``, the rule ``render.color_at`` follows): graphed
+and eager frames are equal bit for bit. The draws stay outside the graph:
+a graph-safe generator would advance by every captured draw, run or not,
+and the eager loop could not follow it.
 
-On a CPU scene the program runs the same functions on the same buffers
-without capture. A capture or replay error raises; nothing falls back to
-the eager loop or to the CPU.
+The host does not see which branch ran, and replays run kernels that the
+Python launch counters of ``ops/mesh_cuda`` never see. So each body
+writes its width into the tile's level log on the device (-1: skipped,
+0: run whole, else the packed width), and each part records its K1 and
+K1b launches at capture (taken back off the counters: a capture launches
+nothing). :meth:`TileProgram.to_host` reads the logs with the frame,
+rebuilds ``levels`` and adds each part's launches once for every time it
+ran.
+
+On a CPU scene the program runs the same parts on the same buffers
+without capture: it computes the same flags and runs the body whose flag
+is set, reading the flags on the host (``render.taken_branch``). A card
+or a PyTorch without conditional nodes raises
+(``graph_cuda.check_support``); nothing falls back to a host-decided
+loop, to the eager loop or to the CPU.
 """
 
 from __future__ import annotations
@@ -65,7 +90,7 @@ def program_for(scene, tile: int, limit: int) -> "TileProgram":
     drops its program, and with it its graphs' memory pool, and makes a
     new one: pools never pile up on one scene. The camera and the frame's
     width go into the program's buffers (:meth:`TileProgram.set_camera`),
-    and ``quantize`` keys the finishing graph within it."""
+    and ``quantize`` keys the finish and the tile graph within it."""
     prog = scene.__dict__.get("_program")
     if prog is None or (prog.tile, prog.limit) != (tile, limit):
         scene.__dict__.pop("_program", None)
@@ -85,13 +110,17 @@ def drop_program(scene):
 
 
 class TileProgram:
-    """A tile's levels as CUDA graphs (see the module docstring).
+    """A tile as one CUDA graph (see the module docstring).
 
-    ``stats``: graphs ``captured``, seconds spent capturing
-    (``capture_s``), ``replays`` and host ``syncs`` (live-count reads),
-    counted since the program was made. ``levels``: (level, rays, width)
-    of every level run since the camera was last set, in order (width
-    None: the level ran unpacked)."""
+    ``stats``, counted since the program was made: ``captured`` parts
+    (graphs), of them ``bodies`` (conditional bodies), ``capture_s``
+    (seconds spent warming up, capturing and instantiating), ``replays``
+    (tile graph launches) and ``syncs`` (host reads of the card: one per
+    frame, :meth:`to_host`). ``frame_stats``: ``tiles``,
+    ``replays`` and ``syncs`` of the last frame. ``levels``: (level, rays,
+    width) of every level run since the camera was last set, tile by
+    tile, read from the level logs (width None: the level ran whole).
+    ``graphs``: the captured parts by key."""
 
     def __init__(self, static, device, tile: int, limit: int):
         self.static = static
@@ -101,29 +130,48 @@ class TileProgram:
         # packed levels of a non-blend scene keep their outputs in sorted
         # order: perm composes them (the identity after level 0)
         self.tracks_perm = self.thread_perm and R.packs(static, tile)
+        self.rows = R.level_rows(static, tile, limit)
+        self.branches = [R.level_branches(static, r) for r in self.rows]
         self.capture = self.device.type == "cuda"
         self.bufs = {}
-        self.graphs = {}          # key -> (CUDAGraph, its launch counts)
+        self.graphs = {}          # part key -> (CUDAGraph, launch counts)
+        self.tiles = {}           # quantize -> graph_cuda.TileGraph
         self._capturing = False
+        self._pending = []        # level logs on their way to the host
         self.inv = self._buf("inv", (4, 4), F32)
         self.consts = self._buf("consts", (3,), F32)
         self.hsize = self._buf("hsize", (), torch.int64)
         self.idx = self._buf("idx", (tile,), torch.int64)
+        self.live = self._buf("live", (), torch.int64)
+        self.log = self._buf("log", (len(self.rows),), torch.int32)
         if self.capture:
+            from raytracer_tpu_torch.ops import graph_cuda
+            self.versions = graph_cuda.check_support()
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-            self.live_host = torch.zeros((), dtype=torch.int64).pin_memory()
-        self.stats = dict(captured=0, capture_s=0.0, replays=0, syncs=0)
-        self.levels = []
+        self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
+                          syncs=0)
+        self.frame_stats = dict(tiles=0, replays=0, syncs=0)
+        self._levels = []
+
+    @property
+    def levels(self):
+        """(level, rays, width) of every level run since the camera was
+        last set (see the class docstring), the logs still on their way
+        read first (:meth:`settle`)."""
+        self.settle()
+        return self._levels
 
     # -- buffers -----------------------------------------------------------
     def _buf(self, name, shape, dtype):
+        """Buffer ``name``, made (zeroed) on first use: a part warmed up
+        on a buffer no tile has written yet reads zero rays."""
         key = (name, tuple(shape), dtype)
         if key not in self.bufs:
             if self._capturing:
                 raise RuntimeError(f"tile program: buffer {key} first made "
                                    f"inside a capture")
-            self.bufs[key] = torch.empty(shape, dtype=dtype,
+            self.bufs[key] = torch.zeros(shape, dtype=dtype,
                                          device=self.device)
         return self.bufs[key]
 
@@ -131,36 +179,49 @@ class TileProgram:
         for name, v in outs.items():
             self._buf(name, v.shape, v.dtype).copy_(v)
 
-    def _jitter(self, rows):
+    def _jitter(self, level):
         if not R.draws_jitter(self.static):
             return None
-        return tuple(self._buf(("jitter", ai), (rows, us * vs, 4), F32)
+        return tuple(self._buf(("jitter", level, ai),
+                               (self.rows[level], us * vs, 4), F32)
                      for ai, (us, vs) in enumerate(self.static.area_steps))
 
-    # -- the steps ---------------------------------------------------------
-    def _shade(self, scene, level, rows, width, o, d, w, img, perm):
-        """One level at ``width`` on its inputs: the render steps, their
-        results by buffer name."""
-        return R.level_step(
-            scene, level, self.limit, o, d, w, img, perm,
-            self._jitter(rows if width is None else width), width=width,
-            thread_perm=self.thread_perm, tracks_perm=self.tracks_perm)
+    def _flags(self, level):
+        return self._buf(("flags", level), (len(self.branches[level]),),
+                         torch.int32)
 
+    # -- the parts ---------------------------------------------------------
     def _level0(self, scene):
         r = self.tile
+        self.log.fill_(-1)
+        self.log[0].fill_(0)
         o, d = R.tile_rays(self.inv, self.consts, self.idx, self.hsize)
         perm = (torch.arange(r, device=self.device) if self.tracks_perm
                 else None)
-        return self._shade(scene, 0, r, None, o, d,
-                           torch.ones((r, 3), device=self.device),
-                           torch.zeros((r, 3), device=self.device), perm)
+        return R.level_step(
+            scene, 0, self.limit, o, d,
+            torch.ones((r, 3), device=self.device),
+            torch.zeros((r, 3), device=self.device), perm, self._jitter(0),
+            width=None, thread_perm=self.thread_perm,
+            tracks_perm=self.tracks_perm)
 
-    def _level(self, scene, level, rows, width):
+    def _predicates(self, level):
+        return {("flags", level): R.level_predicates(
+            self.static, self.rows[level], self.live)}
+
+    def _body(self, scene, level, width):
+        """Branch ``width`` of ``level``: its results by buffer name; its
+        width goes into the level log."""
+        rows = self.rows[level]
+        self.log[level].fill_(0 if width is None else width)
         o, d, w = (self._buf(k, (rows, 3), F32) for k in "odw")
         perm = (self._buf("perm", (self.tile,), torch.int64)
                 if self.tracks_perm else None)
-        return self._shade(scene, level, rows, width, o, d, w,
-                           self._buf("img", (self.tile, 3), F32), perm)
+        return R.level_step(
+            scene, level, self.limit, o, d, w,
+            self._buf("img", (self.tile, 3), F32), perm,
+            self._jitter(level), width=width, thread_perm=self.thread_perm,
+            tracks_perm=self.tracks_perm)
 
     def _finish(self, quantize):
         perm = (self._buf("perm", (self.tile,), torch.int64)
@@ -168,32 +229,70 @@ class TileProgram:
         c = R.finish_step(self._buf("img", (self.tile, 3), F32), perm)
         return {"tile": R.quantize_u8(c) if quantize else c}
 
+    def _parts(self, scene, quantize):
+        """The tile's parts in order: (key, function, whether its eager
+        warm-up commits: all but the branches), the branches of a level
+        after its predicates."""
+        out = [(("level", 0), lambda: self._level0(scene), True)]
+        for level in range(1, len(self.rows)):
+            out.append((("flags", level),
+                        lambda level=level: self._predicates(level), True))
+            for width in self.branches[level]:
+                out.append(((level, width),
+                            lambda level=level, width=width:
+                            self._body(scene, level, width), False))
+        out.append((("finish", quantize),
+                    lambda: self._finish(quantize), True))
+        return out
+
     # -- running -----------------------------------------------------------
-    def _run(self, key, fn):
-        """``fn``'s results into the buffers: on the CPU run directly; on
-        cuda replay the graph of ``key``, or at its first occurrence run
-        ``fn`` eagerly on the side stream and capture it there."""
-        if not self.capture:
-            self._commit(fn())
-            return
-        if key in self.graphs:
-            graph, counts = self.graphs[key]
-            graph.replay()
-            MC.add_launches(counts)
-            self.stats["replays"] += 1
-            return
+    def _run_cpu(self, scene, quantize):
+        """The tile on the CPU: the parts in order, a level's branch
+        chosen by its flags read on the host."""
+        self._commit(self._level0(scene))
+        for level in range(1, len(self.rows)):
+            self._commit(self._predicates(level))
+            k = R.taken_branch(self._flags(level))
+            if k is not None:
+                self._commit(self._body(scene, level,
+                                        self.branches[level][k]))
+        self._commit(self._finish(quantize))
+
+    def _tile_graph(self, scene, quantize):
+        """The tile graph of ``quantize``, built at first use: the parts
+        not captured yet warmed up (on the side stream) and captured,
+        then chained."""
+        if quantize in self.tiles:
+            return self.tiles[quantize]
+        from raytracer_tpu_torch.ops import graph_cuda
+        t0 = time.perf_counter()
+        parts = [p for p in self._parts(scene, quantize)
+                 if p[0] not in self.graphs]
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            outs = fn()
+            for _, fn, commits in parts:
+                outs = fn()
+                if commits:
+                    self._commit(outs)
+                del outs
+        for key, fn, _ in parts:
+            self._capture(key, fn)
         cur.wait_stream(self.stream)
-        for v in outs.values():
-            v.record_stream(cur)
-        self._commit(outs)
-        del outs
-        t0 = time.perf_counter()
+        chain = [self.graphs[("level", 0)][0]]
+        for level in range(1, len(self.rows)):
+            chain.append(self.graphs[("flags", level)][0])
+            chain.append((self._flags(level),
+                          [self.graphs[(level, w)][0]
+                           for w in self.branches[level]]))
+        chain.append(self.graphs[("finish", quantize)][0])
+        tg = self.tiles[quantize] = graph_cuda.TileGraph(chain)
+        self.stats["capture_s"] += time.perf_counter() - t0
+        return tg
+
+    def _capture(self, key, fn):
         before = MC.launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         self._capturing = True
         try:
             with torch.cuda.stream(self.stream):
@@ -208,64 +307,107 @@ class TileProgram:
         MC.add_launches(counts, -1)
         self.graphs[key] = (graph, counts)
         self.stats["captured"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-
-    def _live(self) -> int:
-        """The next level's live count on the host: the level's sync."""
-        live = self._buf("live", (), torch.int64)
-        self.stats["syncs"] += 1
-        if not self.capture:
-            return int(live)
-        self.live_host.copy_(live, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return int(self.live_host)
+        self.stats["bodies"] += isinstance(key[0], int)
 
     def set_camera(self, inv, consts, hsize: int):
         """The camera of the next tiles (``render.camera_consts``) and the
-        frame's width in pixels: copied into the buffers every level-0
-        graph reads, so a moved camera or another frame size replays the
-        same graphs. Starts a new ``levels`` record."""
+        frame's width in pixels: copied into the buffers level 0 reads, so
+        a moved camera or another frame size replays the same graphs.
+        Starts a new ``levels`` record."""
+        self.settle()
         self.inv.copy_(inv)
         self.consts.copy_(consts)
         self.hsize.fill_(hsize)
-        self.levels = []
+        self._levels = []
 
     def run_tile(self, scene, idx, generator, quantize: bool):
-        """One tile of ``tile`` pixel ids: its colours [tile, 3] (uint8
-        with ``quantize``) in the program's tile buffer, valid until the
-        next call. ``generator``: the random jitter's (None when the scene
-        draws none)."""
-        st = self.static
-        self.idx.copy_(idx)
-        rows = self.tile
-        R.draw_jitter(scene, rows, generator, out=self._jitter(rows))
-        self._run((0, None), lambda: self._level0(scene))
-        self.levels.append((0, rows, None))
-        for level in range(1, self.limit + 1):
-            if not R.spawns(st):
-                break
-            n_live = self._live()
-            if n_live == 0:
-                break
-            rows = R.spawn_rows(st, rows)
-            width = R.level_width(st, rows, n_live)
-            shaded = rows if width is None else width
-            R.draw_jitter(scene, shaded, generator, out=self._jitter(shaded))
-            self._run((level, width),
-                      lambda: self._level(scene, level, rows, width))
-            self.levels.append((level, rows, width))
-        self._run(("finish", quantize), lambda: self._finish(quantize))
+        """Enqueues one tile of ``tile`` pixel ids: its colours [tile, 3]
+        (uint8 with ``quantize``) in the program's tile buffer, valid
+        until the next call, and its level log on its way to the host.
+        ``generator``: the random jitter's (None when the scene draws
+        none). Read the tile through :meth:`to_host`."""
+        self._enqueue(scene, idx, generator, quantize)
+        self._send_logs(self.log[None], quantize)
         return self._buf("tile", (self.tile, 3),
                          torch.uint8 if quantize else F32)
 
+    def _enqueue(self, scene, idx, generator, quantize):
+        self.idx.copy_(idx)
+        for level in range(len(self.rows)):
+            R.draw_jitter(scene, self.rows[level], generator,
+                          out=self._jitter(level))
+        if not self.capture:
+            self._run_cpu(scene, quantize)
+            return
+        tg = self._tile_graph(scene, quantize)
+        tg.launch(self.device)
+        self.stats["replays"] += 1
+        self.frame_stats["replays"] += 1
+
+    def _send_logs(self, logs, quantize):
+        """Starts the copy of ``logs`` [n, levels] to the host, read by
+        :meth:`settle` after the sync of :meth:`to_host`."""
+        if not self.capture:
+            self._pending.append((logs.clone(), quantize, None))
+            return
+        host = torch.empty(logs.shape, dtype=logs.dtype, pin_memory=True)
+        host.copy_(logs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pending.append((host, quantize, done))
+
     def frame(self, scene, inv, consts, hsize, idx_tiles, quantize: bool,
               generator):
-        """Every tile of ``idx_tiles`` [n_tiles, tile] of a frame ``hsize``
-        pixels wide into one frame buffer on the device:
-        [n_tiles * tile, 3]."""
+        """Enqueues every tile of ``idx_tiles`` [n_tiles, tile] of a frame
+        ``hsize`` pixels wide into one frame buffer on the device, returned
+        as [n_tiles * tile, 3]: one tile graph launch per tile, no read of
+        the card. Read it through :meth:`to_host`."""
         self.set_camera(inv, consts, hsize)
+        self.frame_stats = dict(tiles=len(idx_tiles), replays=0, syncs=0)
         out = self._buf("frame", (len(idx_tiles), self.tile, 3),
                         torch.uint8 if quantize else F32)
+        logs = self._buf("logs", (len(idx_tiles), len(self.rows)),
+                         torch.int32)
+        tile = self._buf("tile", (self.tile, 3),
+                         torch.uint8 if quantize else F32)
         for ti, idx in enumerate(idx_tiles):
-            out[ti].copy_(self.run_tile(scene, idx, generator, quantize))
+            self._enqueue(scene, idx, generator, quantize)
+            out[ti].copy_(tile)
+            logs[ti].copy_(self.log)
+        self._send_logs(logs, quantize)
         return out.reshape(-1, 3)
+
+    def to_host(self, t):
+        """``t`` (a frame or a tile of this program, or what was made of
+        it on the device) on the host: the frame's one sync, which also
+        brings its level logs. Rebuilds ``levels`` from the logs and adds
+        the launches of the parts that ran to the counters."""
+        out = t.cpu()
+        self.stats["syncs"] += 1
+        self.frame_stats["syncs"] += 1
+        self.settle()
+        return out
+
+    def settle(self):
+        """Reads the level logs on their way to the host, extending
+        ``levels`` and counting the launches of the parts that ran. After
+        :meth:`to_host` they have arrived; otherwise it waits for them."""
+        pending, self._pending = self._pending, []
+        for logs, quantize, done in pending:
+            if done is not None:
+                done.synchronize()
+            for log in logs.tolist():
+                self._count(("level", 0))
+                self._levels.append((0, self.rows[0], None))
+                for level in range(1, len(self.rows)):
+                    self._count(("flags", level))
+                    if log[level] < 0:
+                        continue
+                    width = log[level] or None
+                    self._count((level, width))
+                    self._levels.append((level, self.rows[level], width))
+                self._count(("finish", quantize))
+
+    def _count(self, key):
+        if self.capture:
+            MC.add_launches(self.graphs[key][1])

@@ -12,7 +12,8 @@ microbatch of ``parallel.train.render_loss_and_grad`` as
 1. for each level L, in ``render.color_at``'s order: the host reads the
    level's live count (L >= 1; the level's one sync), stops at 0 or picks
    the width (``render.level_width``), draws the level's random jitter
-   into its buffers (``render.draw_jitter``), then replays the forward
+   into its buffers at the level's whole width (``render.draw_jitter``;
+   the levels not run draw theirs after the last), then replays the forward
    graph of (L, width): ``render.level_step`` on the level's input
    buffers, its outputs copied into level L + 1's input buffers;
 2. one graph for the loss (the MSE of ``render_loss``) and its gradient
@@ -163,6 +164,7 @@ class TrainProgram:
         self.static, self.device, self.rows = static, device, rows
         self.remat, self.ray_grad = remat, ray_grad
         self.limit = static.recursion_limit
+        self.level_rows = R.level_rows(static, rows, self.limit)
         self.thread_perm = not static.has_blend
         self.tracks_perm = self.thread_perm and R.packs(static, rows)
         self.capture = device.type == "cuda"
@@ -229,12 +231,14 @@ class TrainProgram:
         for name, v in outs.items():
             self._put(name, v)
 
-    def _jitter(self, level, rows):
+    def _jitter(self, level):
+        """Level ``level``'s jitter buffers, at its whole width."""
         if not R.draws_jitter(self.static):
             return None
+        rows = self.level_rows[level]
         out = []
         for ai, (us, vs) in enumerate(self.static.area_steps):
-            name = ("jitter", level, ai, rows)
+            name = ("jitter", level, ai)
             if name not in self.bufs:
                 self._put(name, torch.zeros((rows, us * vs, 4), dtype=F32,
                                             device=self.device))
@@ -258,13 +262,11 @@ class TrainProgram:
     def _outputs(self, level, width):
         """Level ``level``'s outputs from its input buffers, with grad."""
         b = self.bufs
-        rows = b[("o", level)].shape[0]
         with torch.enable_grad():
             return R.level_step(
                 self.scene, level, self.limit, b[("o", level)],
                 b[("d", level)], b[("w", level)], b[("img", level)],
-                b.get(("perm", level)),
-                self._jitter(level, rows if width is None else width),
+                b.get(("perm", level)), self._jitter(level),
                 width=width, thread_perm=self.thread_perm,
                 tracks_perm=self.tracks_perm)
 
@@ -401,9 +403,8 @@ class TrainProgram:
             self._put(("target",), target)
             level, rows, width = 0, self.rows, None
             while True:
-                shaded = rows if width is None else width
-                R.draw_jitter(self.scene, shaded, generator,
-                              out=self._jitter(level, shaded))
+                R.draw_jitter(self.scene, rows, generator,
+                              out=self._jitter(level))
                 key = ("fwd", level, width)
                 outs = self._run(
                     key, lambda: self._outputs(level, width),
@@ -421,6 +422,8 @@ class TrainProgram:
                 rows = R.spawn_rows(st, rows)
                 width = R.level_width(st, rows, n_live)
             end = level + 1
+            for n in self.level_rows[end:]:   # the levels not run draw too
+                R.draw_jitter(self.scene, n, generator)
             self._run(("loss", end), lambda: self._loss(end), self._commit)
         self._tape = self.levels = tape
         return self.bufs[("loss",)]

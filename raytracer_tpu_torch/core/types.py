@@ -154,6 +154,12 @@ class Scene:
     def device(self) -> torch.device:
         return self.mat.device
 
+    def family_slice(self, name: str, table):
+        """The rows of ``table`` (indexed by gid) that belong to primitive
+        family ``name`` (:data:`FAMILIES`)."""
+        off, n = self.static.family_range(name)
+        return table[off : off + n]
+
     def const(self, key, build):
         """``build()`` (tensors on this scene's device made from the static
         facts: index columns, masks, sample tables), made on the first call

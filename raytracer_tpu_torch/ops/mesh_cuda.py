@@ -59,19 +59,19 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build_library() -> tuple[Path, str]:
-    """Compile ``csrc/mesh_nearest.cu`` for sm_90a into ``build/`` (keyed
-    by the source's hash) unless already built; returns (path, the
-    compiler's log, with ptxas' register and shared-memory report)."""
-    src = _CSRC.read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libmesh_nearest-{key}.so"
+def nvcc_build(source: Path, flags, stem: str) -> tuple[Path, str]:
+    """Compile ``source`` with ``flags`` into ``build/lib<stem>-<hash>.so``
+    (keyed by the source and the flags) unless already built; returns
+    (path, the compiler's log)."""
+    src = source.read_bytes()
+    key = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    out = _BUILD_DIR / f"lib{stem}-{key}.so"
     log_path = out.with_suffix(".log")
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
+            [_nvcc(), *flags, "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -81,6 +81,13 @@ def build_library() -> tuple[Path, str]:
         os.replace(tmp, out)
     log = log_path.read_text() if log_path.exists() else ""
     return out, log
+
+
+def build_library() -> tuple[Path, str]:
+    """Compile ``csrc/mesh_nearest.cu`` for sm_90a into ``build/`` unless
+    already built; returns (path, the compiler's log, with ptxas'
+    register and shared-memory report)."""
+    return nvcc_build(_CSRC, NVCC_FLAGS, "mesh_nearest")
 
 
 def _library():

@@ -199,8 +199,9 @@ def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
 
     ``graphs=True`` runs each rank's slabs through the replica's tile
     program (``core/tile_program.program_for(scene, per_rank, limit)``,
-    the JAX package's jitted ``run``): on cuda each level replayed as a
-    CUDA graph, on the CPU the same steps without capture.
+    the JAX package's jitted ``run``): on cuda one CUDA graph launch per
+    tile, its level skip and widths taken on the card, on the CPU the
+    same steps without capture.
     ``graphs=False`` runs :func:`~raytracer_tpu_torch.core.render.color_at`
     slab by slab. Both give the same frame bit for bit."""
     full_f32()
@@ -235,7 +236,8 @@ def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
         if groups:          # one rank in a group still takes the collective
             every = _all_gather(mine.reshape(len(slabs), per_rank, 3), groups)
             mine = every.transpose(0, 1)        # [tile, rank, per_rank, 3]
-        img = mine.reshape(-1, 3)[:n].cpu().numpy()
+        mine = mine.reshape(-1, 3)[:n]
+        img = (prog.to_host(mine) if graphs else mine.cpu()).numpy()
     out = np.empty_like(img)
     out[order] = img
     return out.reshape(camera.vsize, camera.hsize, 3)

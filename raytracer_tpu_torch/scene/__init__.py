@@ -17,3 +17,11 @@ from raytracer_tpu_torch.scene.specs import (
     hexagon,
 )
 from raytracer_tpu_torch.scene.builder import build_scene
+
+
+def parse_scene(*args, **kwargs):
+    """Lazy alias for
+    :func:`raytracer_tpu_torch.scene.yaml_scene.parse_scene`."""
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene as _parse
+
+    return _parse(*args, **kwargs)

@@ -58,8 +58,8 @@ def _tile_color(program, scene, idx, generator):
     """One tile's colours [tile, 3] through ``program``, as a numpy
     array."""
     with torch.no_grad():
-        return program.run_tile(scene, idx, generator,
-                                quantize=False).cpu().numpy()
+        return program.to_host(program.run_tile(
+            scene, idx, generator, quantize=False)).numpy()
 
 
 def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
@@ -80,8 +80,8 @@ def render_resumable(scene, camera, checkpoint_path, *, seed: int = 0,
     reason)`` observes the retries.
 
     Each tile runs through the scene's tile program
-    (``core/tile_program.py``: on cuda its levels replayed as CUDA
-    graphs), the counterpart of the JAX package's ``_tile_color_jit``.
+    (``core/tile_program.py``: on cuda one CUDA graph launch per tile),
+    the counterpart of the JAX package's ``_tile_color_jit``.
 
     Two differences from the JAX package's ``render_resumable``, each
     leaving the image as ``render`` gives it:

@@ -451,3 +451,110 @@ def test_graphed_train_step_equals_eager(name, remat):
     assert torch.equal(lg2, lg)
     assert TPG.programs() == [prog] and prog.stats["captured"] == captured
     assert prog.stats["replays"] > 0
+
+
+@pytest.mark.cuda
+def test_tile_graph_runs_the_flagged_branch():
+    """graph_cuda.TileGraph on a toy level: four branches, each a captured
+    graph writing its mark; set_conditionals_kernel runs exactly the
+    branch whose flag is set, or none, launch after launch, against its
+    plain version (render.taken_branch of the same flags)."""
+    _require_cuda()
+    from raytracer_tpu_torch.core.render import taken_branch
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+
+    GC.check_support()
+    out = torch.zeros(4, dtype=torch.int32, device="cuda")
+    flags = torch.zeros(4, dtype=torch.int32, device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    bodies = []
+    for k in range(4):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool)
+            out[k].fill_(k + 1)
+            g.capture_end()
+        bodies.append(g)
+    tg = GC.TileGraph([(flags, bodies)])
+    before = GC.set_conditionals_launches
+    cases = [None, 0, 1, 2, 3, 2, None]
+    for k in cases:
+        flags.zero_()
+        out.zero_()
+        if k is not None:
+            flags[k] = 1
+        tg.launch()
+        got = out.cpu()
+        want = taken_branch(flags.cpu())
+        assert want == k
+        assert got.tolist() == [j + 1 if j == k else 0 for j in range(4)]
+    assert GC.set_conditionals_launches == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["glass_mesh4", "csg_area"])
+def test_graphed_frame_is_one_launch_per_tile(name, monkeypatch):
+    """A graphed frame on the card: one tile graph launch per tile and no
+    synchronizing call inside ``frame`` (torch's sync debug mode set to
+    raise, and the synchronize calls counted), u8 frames bit-equal to
+    graphs=False, and the K1 and K1b launches counted from the level logs
+    equal to the eager frame's."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    if name == "csg_area":           # random area-light jitter, packed
+        cam, sc = parse_scene(scenes.csg_area_yaml(64, 64), device="cuda")
+    else:
+        items, cam = scenes.glass_mesh(instances=4, hsize=96, vsize=54)
+        sc = build_scene(items, device="cuda")
+    render(sc, cam, quantize=True)               # captures
+    prog = TP.program_of(sc)
+    tile = prog.tile
+    _, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, "cuda")
+    inv, consts = R.camera_consts(cam, "cuda")
+    calls = {"launch": 0, "sync": 0}
+    real_launch = GC.TileGraph.launch
+
+    def launch(self, device=None):
+        calls["launch"] += 1
+        return real_launch(self, device)
+
+    monkeypatch.setattr(GC.TileGraph, "launch", launch)
+    for owner in (torch.cuda, torch.cuda.Stream, torch.cuda.Event):
+        real = owner.synchronize
+
+        def sync(*a, _real=real, **kw):
+            calls["sync"] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(owner, "synchronize", sync)
+    torch.cuda.synchronize()
+    calls.update(launch=0, sync=0)
+    MC.reset_launches()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            out = prog.frame(sc, inv, consts, cam.hsize, idx_tiles, True, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert calls == {"launch": len(idx_tiles), "sync": 0}
+    prog.to_host(out)
+    k_graphed = dict(MC.launch_counts())
+    monkeypatch.undo()
+    MC.reset_launches()
+    graphed = render(sc, cam, quantize=True)
+    k_render = dict(MC.launch_counts())
+    MC.reset_launches()
+    eager = render(sc, cam, quantize=True, graphs=False)
+    k_eager = dict(MC.launch_counts())
+    np.testing.assert_array_equal(graphed, eager)
+    assert k_graphed == k_render == k_eager
+    assert prog.frame_stats == dict(tiles=len(idx_tiles),
+                                    replays=len(idx_tiles), syncs=1)
+    if name == "glass_mesh4":
+        assert k_eager["k1"] > 0
+        assert any(w is not None for _, _, w in prog.levels)
