@@ -60,7 +60,8 @@ Phases (any failure exits non-zero before the final line):
    and the two area-light scenes cut small on cuda against the CPU in
    deterministic jitter mode.
 
-7. the differentiable path (launch counters zeroed again just before it):
+7. the differentiable path (launch counters zeroed again just before it,
+   set_conditionals_kernel's too, and read at its end):
    (7a) scenes.mesh_grad (6,320 triangles, a plane, a sphere; 64x48,
    depth 2): opaque, the image MSE over the eye position through the
    differentiable camera; glass, render_loss_and_grad over partition_scene's
@@ -68,33 +69,45 @@ Phases (any failure exits non-zero before the final line):
    gradient table to rtol 1e-3, atol 1e-5), central differences on the
    card (the mesh's diffuse, the eye's y), and K1 launched by the backward
    pass (the remat recompute). (7b) train cells at 512x256 = 131,072 rays
-   in render's block order, through the train program (each level's
-   forward and backward replayed as CUDA graphs, core/train_program.py,
-   the default of every train entry point; the warm-up step captures
-   them), one warm-up step and 3 timed: glass_train (glass_mesh, 353,920
+   in render's block order, through the train program (a microbatch one
+   forward and one backward CUDA graph launch, its levels skipped or
+   packed on the card by conditional nodes, core/train_program.py, the
+   default of every train entry point; the warm-up step captures every
+   branch of every level, each run once eagerly first), one warm-up step
+   and 3 timed: glass_train (glass_mesh, 353,920
    triangles) and flagship_train, train_step with n_micro=4, remat off
    (one more glass step with remat on, after a warm-up step), and
    dragons_pose (1,061,760 triangles, Adam on the eye position:
    render_loss_and_grad of rays that require grad, made from the eye by
    the differentiable camera, and no scene parameter); s/step, rays/s
    fwd+bwd, peak memory, K1 launches per step by mode, the losses, which
-   must fall. Every K1 call of each cell's warm-up step (32,768-ray
-   microbatches at S = 32 slices per subtile for glass_train, 131,072 rays
-   at S = 8 for dragons_pose) is recorded with its outputs, which are held
-   against the plain version as in phase 2, in 65,536-ray blocks. (7c) one
-   step of each cell under torch.profiler. Then
+   must fall. Every K1 call of each cell's warm-up step (the eager
+   warm-up of every branch, each level's widest committed so that the
+   next level's branches warm up on its rays; 32,768-ray microbatches at
+   S = 32 slices per subtile for glass_train, 131,072 rays at S = 8 for
+   dragons_pose) is recorded with its outputs, which are held against the
+   plain version as in phase 2, in 65,536-ray blocks. (7c) one
+   step of each cell under torch.profiler (K1/K1b events recorded).
+   Then
    ``raytracer_tpu_torch.examples.inverse_render --pose`` on the card.
    (7d, launch counters zeroed just before) each cell's gradient on one
    fixed state, graphed against graphs=False in turns (graphed, eager,
    eager, graphed): losses bit-equal, every gradient table within rtol
    1e-3, atol 1e-5 (the largest relative difference logged), K1
-   launches per step by mode equal on both sides, s/step, the program's
-   graphs and capture seconds, peak device memory (graphed: allocated +
-   the graph pool); only the graphed side's launches join the kernels
-   line. Then one graphed and one eager dragons_pose gradient under
-   torch.profiler: device busy, idle share, the host's cudaGraphLaunch
-   and cudaLaunchKernel calls, and K1's and K1b's device events, which
-   must equal the counters' deltas.
+   launches per step by mode and K1b's equal on both sides (the graphed
+   side's counted from the level logs), s/step, the program's parts and
+   capture seconds, peak device memory (graphed: allocated + the graph
+   pools), each call's host reads of the card counted by torch's sync
+   debug mode: a graphed step must make 0 live-count reads, 1 host sync
+   (its level logs) and 2 x n_micro graph launches. Only the graphed
+   side's launches join the kernels line. Then, in a process of its own
+   (``--train-profiles``: in the main process, after phases 2 to 6, the
+   profiler reports K1 kernels the counters do not hold), one graphed
+   glass_train and dragons_pose gradient and one eager dragons_pose
+   gradient under torch.profiler: device busy, idle share, the host's
+   cudaGraphLaunch and cudaLaunchKernel calls, and K1's and K1b's device
+   events, which must equal the counters' deltas (flagship_train
+   launches no K1).
 8. packed levels, resumable and multi-process rendering, the examples
    (launch counters zeroed again just before it, and read just after 8d):
    (8a) one dragons_equiv tile and one glass_mesh tile, each packed
@@ -154,7 +167,10 @@ Phases (any failure exits non-zero before the final line):
    moved and turned by a little noise) copied into their static buffers:
    K1 against the plain version at phase 2's tolerances, K1b exactly;
    set_conditionals_kernel in a toy tile graph of four IF nodes against
-   the host's choice of branch on the same flags (exactly), timed. (10b,
+   the host's choice of branch on the same flags (exactly), timed; and a
+   toy level of the train program's shape, a backward tile graph of five
+   IF bodies (gather vjps) on the flags its forward wrote, against the
+   host's choice and gradient (exactly). (10b,
    launch counters zeroed just before and read just after)
    dragons_equiv, glass_mesh, flagship, cli_csg_area_light (random
    jitter) and cli_soft_glass, graphed (render's default) against
@@ -179,7 +195,7 @@ Phases (any failure exits non-zero before the final line):
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object with the kernels' numbers (launches: the main-path runs
-of phases 5 to 10), and
+of phases 5 to 10; set_conditionals_kernel's: phases 7 and 10), and
 the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
@@ -188,6 +204,7 @@ raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -1074,19 +1091,63 @@ def timed_steps(label, mc, step, state, n_rays):
     return res, state, max_err
 
 
+def pose_cell(dev, dragons):
+    """dragons_pose: the dragons_equiv scene (1,061,760 triangles) at
+    512x256, the frame from the true eye as the target. Returns (the
+    image MSE over an eye, a function of the eye tensor, of ``graphs``
+    and of a context around the gradient's call; the eye to start
+    from)."""
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core.render import color_at
+    from raytracer_tpu_torch.parallel import render_loss_and_grad
+
+    h, v = TRAIN_SIZE
+    _, cam = scenes.dragons_equiv(hsize=h, vsize=v)
+    frm, to, up = (0.0, 2.5, -10.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)
+    order = block_rays(cam, dev)[2]
+    with torch.no_grad():
+        target = color_at(dragons, *eye_rays(
+            cam, torch.tensor(frm, device=dev), order, to, up))
+    start = torch.tensor(frm, device=dev) + torch.tensor(
+        [0.1, -0.1, -0.1], device=dev)
+
+    def pose_loss(eye, graphs, around=contextlib.nullcontext):
+        """The image MSE over the eye: the rays require grad, the scene's
+        tables are no parameter (render_loss_and_grad of none);
+        ``around`` holds the gradient's call, the camera's forward
+        outside it."""
+        rays = eye_rays(cam, eye, order, to, up)
+        with around():
+            loss, _ = render_loss_and_grad(
+                {}, lambda _: dragons, *rays, target, remat=False,
+                graphs=graphs)
+        return loss
+
+    return pose_loss, start
+
+
+def pose_gradient(pose_loss, start, graphs, around=contextlib.nullcontext):
+    """dragons_pose's gradient at the eye ``start``: (loss, {"eye": ...})."""
+    at = start.clone().requires_grad_(True)
+    loss = pose_loss(at, graphs, around)
+    return loss, {"eye": at.grad}
+
+
 def train_cells(mc, dev, dragons):
     """7b: glass_train and flagship_train (train_step, SGD lr 1e-3 against
     a black target, n_micro=4, remat off: the JAX package's train bench),
     one more glass step with remat on, and dragons_pose (Adam on the eye
     position against the frame from the true eye). Every batch is in
     render's block order. Returns (numbers, {cell: (its step, the state
-    to step from, its gradient function of ``graphs`` on one fixed
-    state)} for the profiles and 7d, the max |t_kernel - t_plain| over
-    the warm-up steps' K1 calls)."""
+    to step from, its gradient function of ``graphs`` (and of a context
+    around the gradient's call) on one fixed state, its microbatches)}
+    for the profiles and 7d, the max |t_kernel - t_plain| over the
+    warm-up steps' K1 calls)."""
     import torch
 
     from raytracer_tpu_torch import scenes
-    from raytracer_tpu_torch.core.render import color_at
     from raytracer_tpu_torch.parallel import (
         partition_scene, render_loss_and_grad, train_step)
     from raytracer_tpu_torch.scene import build_scene
@@ -1107,13 +1168,15 @@ def train_cells(mc, dev, dragons):
         out[label], sc, e = timed_steps(label, mc, step, sc, o.shape[0])
         max_err = max(max_err, e)
 
-        def grads(graphs, sc=sc, o=o, d=d, black=black):
+        def grads(graphs, around=contextlib.nullcontext, sc=sc, o=o, d=d,
+                  black=black):
             params, recombine = partition_scene(sc)
-            return render_loss_and_grad(params, recombine, o, d, black,
-                                        n_micro=4, remat=False,
-                                        graphs=graphs)
+            with around():
+                return render_loss_and_grad(params, recombine, o, d, black,
+                                            n_micro=4, remat=False,
+                                            graphs=graphs)
 
-        runs[label] = (step, sc, grads)
+        runs[label] = (step, sc, grads, 4)
         out[label].update(triangles=sc.static.counts[5],
                           resolution=f"{h}x{v}", n_micro=4, remat=False)
         if label == "glass_train":
@@ -1131,26 +1194,10 @@ def train_cells(mc, dev, dragons):
             log(f"  [7b] glass_train, one step with remat on: "
                 f"{json.dumps(out[label]['remat_step'])}")
 
-    # dragons_pose: the dragons_equiv scene (1,061,760 triangles) at 512x256
-    _, cam = scenes.dragons_equiv(hsize=h, vsize=v)
-    frm, to, up = (0.0, 2.5, -10.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)
-    order = block_rays(cam, dev)[2]
-    with torch.no_grad():
-        target = color_at(dragons, *eye_rays(
-            cam, torch.tensor(frm, device=dev), order, to, up))
-    start = torch.tensor(frm, device=dev) + torch.tensor(
-        [0.1, -0.1, -0.1], device=dev)
+    pose_loss, start = pose_cell(dev, dragons)
     eye = start.clone().requires_grad_(True)
     opt = torch.optim.Adam([eye], lr=0.03)
     grads = []
-
-    def pose_loss(eye, graphs):
-        """The image MSE over the eye: the rays require grad, the scene's
-        tables are no parameter (render_loss_and_grad of none)."""
-        loss, _ = render_loss_and_grad(
-            {}, lambda _: dragons, *eye_rays(cam, eye, order, to, up),
-            target, remat=False, graphs=graphs)
-        return loss
 
     def pose_step(_, graphs=True):
         opt.zero_grad(set_to_none=True)
@@ -1161,17 +1208,15 @@ def train_cells(mc, dev, dragons):
         opt.step()
         return loss, None
 
-    def pose_grads(graphs):
-        at = start.clone().requires_grad_(True)
-        loss = pose_loss(at, graphs)
-        return loss, {"eye": at.grad}
+    def pose_grads(graphs, around=contextlib.nullcontext):
+        return pose_gradient(pose_loss, start, graphs, around)
 
     out["dragons_pose"], _, e = timed_steps("dragons_pose", mc, pose_step,
                                             None, h * v)
     out["dragons_pose"].update(triangles=dragons.static.counts[5],
                                resolution=f"{h}x{v}", eye_grads=list(grads),
                                eye=eye.detach().cpu().tolist())
-    runs["dragons_pose"] = (pose_step, None, pose_grads)
+    runs["dragons_pose"] = (pose_step, None, pose_grads, 1)
     return out, runs, max(max_err, e)
 
 
@@ -1203,19 +1248,54 @@ def grad_diff(label, got, want):
     return worst, rel
 
 
+class SyncProbe:
+    """Counts the synchronizing CUDA calls that torch flags, its sync debug
+    mode set to warn, inside ``with probe():`` blocks: every read of a
+    device value by the host (``.item()``, ``int()``, a copy to pageable
+    memory), as the eager step reads each level's live count. An event's
+    synchronize is not flagged: the train program's one read of a step,
+    which its ``stats["syncs"]`` counts."""
+
+    def __init__(self):
+        self.count = 0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        import warnings
+
+        import torch
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # torch's own notice that the mode is a prototype is no sync
+        self.count += sum("synchronizing" in str(w.message)
+                          and "prototype" not in str(w.message)
+                          for w in caught)
+
+
 def graphed_vs_eager(mc, runs):
     """7d: each train cell's gradient (the step of 7b without its update,
-    on one fixed state) through the train program and through
-    graphs=False in turns (graphed, eager, eager, graphed; host clock to a
-    synchronize): the losses bit-equal, the gradients within phase 7's
-    tolerances, K1 launches per step by mode equal on both sides (the
-    graphed side's counted from replays), the program's graphs and
-    capture seconds, and peak device memory (graphed: allocated + the
-    program's graph pool). Launch counters are read around every call:
-    ``launches`` keeps each side's totals, so that only the graphed side's
-    join the kernels line. Then one graphed and one eager dragons_pose
-    gradient under torch.profiler, whose K1 and K1b device events must
-    equal the counters' deltas."""
+    on one fixed state) through the train program (a microbatch one
+    forward and one backward graph launch, its levels skipped or packed
+    by conditional nodes) and through graphs=False in turns (graphed,
+    eager, eager, graphed; host clock to a synchronize): the losses
+    bit-equal, the gradients within phase 7's tolerances, K1's launches
+    by mode and K1b's per step equal on both sides (the graphed side's
+    counted from the level logs), the program's parts and capture
+    seconds, peak device memory (graphed: allocated + the program's graph
+    pools), and each call's host reads of the card (SyncProbe), host
+    syncs and graph launches: every graphed step 0 live-count reads, 1
+    host sync (the step's read of the level logs) and 2 x n_micro graph
+    launches, or the phase fails. Launch counters are read around every
+    call: ``launches`` keeps each side's totals, so that only the graphed
+    side's join the kernels line. Then, in a process of its own
+    (train_profiles), one graphed glass_train and dragons_pose gradient
+    under torch.profiler, and one eager dragons_pose gradient."""
     import torch
 
     from raytracer_tpu_torch.core import train_program as TPG
@@ -1223,24 +1303,46 @@ def graphed_vs_eager(mc, runs):
     out = {}
     launches = {g: dict.fromkeys(mc.launch_counts(), 0)
                 for g in ("graphed", "eager")}
-    for label, (_, _, grads) in runs.items():
-        res = {g: dict(s=[], k1=[], peak=0) for g in ("graphed", "eager")}
+    kernels = ("nearest", "any_hit", "behind", "prepass")
+    probe = SyncProbe()
+
+    def call(grads, graphs, around=contextlib.nullcontext):
+        """One gradient: (loss, grads, seconds, launch counts by counter,
+        the program's stats delta (graphed))."""
+        stats0 = {id(p): dict(p.stats) for p in TPG.programs()}
+        before = mc.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = grads(graphs, around)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in mc.launch_counts().items()}
+        for k, v in delta.items():
+            launches["graphed" if graphs else "eager"][k] += v
+        st = {}
+        if graphs:
+            prog = TPG.programs()[0]
+            was = stats0.get(id(prog), dict.fromkeys(prog.stats, 0))
+            st = {k: v - was[k] for k, v in prog.stats.items()}
+        return loss, g, sec, delta, st
+
+    for label, (_, _, grads, n_micro) in runs.items():
+        res = {g: dict(s=[], k1=[], peak=0, host_reads=[], host_syncs=[],
+                       graph_launches=[]) for g in ("graphed", "eager")}
         got = {}
         for graphs in (True, False, False, True):
             side = "graphed" if graphs else "eager"
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             res[side].setdefault("base", torch.cuda.memory_allocated())
-            before = mc.launch_counts()
-            t0 = time.perf_counter()
-            loss, g = grads(graphs)
-            torch.cuda.synchronize()
-            res[side]["s"].append(time.perf_counter() - t0)
-            delta = {k: v - before[k] for k, v in mc.launch_counts().items()}
-            for k, v in delta.items():
-                launches[side][k] += v
-            res[side]["k1"].append({k: delta[k] for k in
-                                    mc.mesh_nearest.launches_by_mode})
+            reads = probe.count
+            loss, g, sec, delta, st = call(grads, graphs, probe)
+            reads = probe.count - reads
+            res[side]["s"].append(sec)
+            res[side]["k1"].append({k: delta[k] for k in kernels})
+            res[side]["host_reads"].append(reads)
+            res[side]["host_syncs"].append(reads + st.get("syncs", 0))
+            res[side]["graph_launches"].append(st.get("replays", 0))
             res[side]["peak"] = max(res[side]["peak"],
                                     torch.cuda.max_memory_allocated())
             got.setdefault(side, (loss, g))
@@ -1250,58 +1352,120 @@ def graphed_vs_eager(mc, runs):
             f"[7d] {label}", got["graphed"], got["eager"])
         for side in ("graphed", "eager"):
             res[side]["s_per_step"] = statistics.median(res[side]["s"])
-        if (res["graphed"]["k1"][0] != res["eager"]["k1"][0]
-                or len({json.dumps(x) for x in res["graphed"]["k1"]
-                        + res["eager"]["k1"]}) != 1):
-            raise AssertionError(f"{label}: K1 launches per step differ: "
+        if len({json.dumps(x) for x in res["graphed"]["k1"]
+                + res["eager"]["k1"]}) != 1:
+            raise AssertionError(f"{label}: K1/K1b launches per step differ: "
                                  f"{res['graphed']['k1']} vs "
                                  f"{res['eager']['k1']}")
-        res.update(graphs=len(prog.graphs), stats=dict(prog.stats),
-                   levels=prog.levels, graph_pool_bytes=graph_pool_bytes(prog),
+        res.update(n_micro=n_micro, graphs=len(prog.graphs),
+                   stats=dict(prog.stats), levels=prog.levels,
+                   graph_pool_bytes=graph_pool_bytes(prog),
                    graphed_over_eager=res["graphed"]["s_per_step"]
                    / res["eager"]["s_per_step"])
         res["peak_graphed_over_eager"] = (
             res["graphed"]["peak"] + res["graph_pool_bytes"]) / res["eager"][
                 "peak"]
         log(f"  [7d] {label}, graphed against eager: {json.dumps(res)}")
+        want = dict(host_reads=[0, 0], host_syncs=[1, 1],
+                    graph_launches=[2 * n_micro] * 2)
+        have = {k: res["graphed"][k] for k in want}
+        if have != want:
+            raise AssertionError(f"{label}: the graphed steps made {have}, "
+                                 f"not {want}")
         out[label] = res
     out["launches"] = launches
-    grads = runs["dragons_pose"][2]
-    out["profile"] = {}
-    for graphs in (True, False):
-        side = "graphed" if graphs else "eager"
-        before = mc.launch_counts()
-        prof = profile_run(lambda: grads(graphs),
-                           out["dragons_pose"][side]["s_per_step"],
-                           count_kernels=tuple(PROFILED_KERNELS))
-        counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
-        prof["counted"] = {name: sum(counted[k] for k in keys)
-                           for name, keys in PROFILED_KERNELS.items()}
-        if prof["kernel_events"] != prof["counted"]:
-            raise AssertionError(
-                f"dragons_pose {side} step: the profiler's kernel events "
-                f"{prof['kernel_events']} differ from the launch counters "
-                f"{prof['counted']}")
-        out["profile"][side] = prof
-    log(f"  [7d] one dragons_pose gradient under torch.profiler, graphed "
-        f"and eager: {json.dumps(out['profile'])}")
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--train-profiles"],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"7d's profiling process failed "
+                             f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"{proc.stderr[-4000:]}")
+    out["profile"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, prof in out["profile"].items():
+        log(f"  [7d] one {key.replace(':', ' gradient, ')} under "
+            f"torch.profiler, in a process of its own: {json.dumps(prof)}")
     return out
 
 
-def grad_phase(mc, dev, out_dir, dragons):
+def train_profiles():
+    """7d's profiles, in a process of its own (``--train-profiles``): in
+    the main process, after phases 2 to 6, torch.profiler reports more K1
+    and K1b kernels in a graphed glass_train gradient than the counters
+    (and than a process of its own, on the same cell) hold, tiny ones
+    under a stale correlation id; here it does not. glass_train and
+    dragons_pose on their first state (7b's batches), each gradient built
+    and run once, then one graphed gradient of each and one eager
+    dragons_pose gradient under torch.profiler (profile_run): device
+    busy, idle share against the same call's time unprofiled, the host's
+    cudaGraphLaunch and cudaLaunchKernel calls, and K1's and K1b's device
+    events, which must equal the launch counters' deltas (the graphed
+    side's counted from the level logs). flagship_train launches no K1;
+    7c profiles its step. Returns the profiles by "cell:side"."""
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.ops import mesh_cuda as mc
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss_and_grad)
+    from raytracer_tpu_torch.scene import build_scene
+
+    dev = torch.device("cuda")
+    h, v = TRAIN_SIZE
+    items, cam = scenes.glass_mesh(56, h, v)
+    params, recombine = partition_scene(build_scene(items, device=dev))
+    o, d, _ = block_rays(cam, dev)
+    cells = {"glass_train": lambda graphs: render_loss_and_grad(
+        params, recombine, o, d, torch.zeros_like(o), n_micro=4,
+        remat=False, graphs=graphs)}
+    d_items, _ = scenes.dragons_equiv()
+    pose_loss, start = pose_cell(dev, build_scene(d_items, device=dev))
+    cells["dragons_pose"] = (
+        lambda graphs: pose_gradient(pose_loss, start, graphs))
+    out = {}
+    for label, grads in cells.items():
+        for graphs in (True, False) if label == "dragons_pose" else (True,):
+            grads(graphs)                   # builds the program
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads(graphs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            before = mc.launch_counts()
+            prof = profile_run(lambda: grads(graphs), sec,
+                               count_kernels=tuple(PROFILED_KERNELS))
+            counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
+            prof["counted"] = {name: sum(counted[k] for k in keys)
+                               for name, keys in PROFILED_KERNELS.items()}
+            prof["s_unprofiled"] = sec
+            side = "graphed" if graphs else "eager"
+            out[f"{label}:{side}"] = prof
+            if prof["kernel_events"] != prof["counted"]:
+                raise AssertionError(
+                    f"{label} {side} gradient: the profiler's kernel events "
+                    f"{prof['kernel_events']} differ from the launch "
+                    f"counters {prof['counted']}")
+    return out
+
+
+def grad_phase(mc, gc, dev, out_dir, dragons):
     """Phase 7, the differentiable path on the card (launch counters zeroed
-    just before it). Its numbers keep each train cell's step and state
-    under "runs", for phase 8's packing off/on steps."""
+    just before it, set_conditionals_kernel's too, read at its end). Its
+    numbers keep each train cell's step and state under "runs", for phase
+    8's packing off/on steps."""
     from raytracer_tpu_torch.examples import inverse_render
 
-    log("[7] the differentiable path (K1 launch counters zeroed)")
+    log("[7] the differentiable path (K1 and set_conditionals launch "
+        "counters zeroed)")
     mc.reset_launches()
+    gc.set_conditionals_launches = 0
     out = {"parity": grad_parity(mc, dev)}
     cells, runs, out["max_err"] = train_cells(mc, dev, dragons)
     out["cells"], out["runs"] = cells, runs
-    for label, (step, state, _) in runs.items():
+    for label, (step, state, _, _) in runs.items():
         cells[label]["profile"] = profile_run(
-            lambda: step(state), cells[label]["s_per_step"])
+            lambda: step(state), cells[label]["s_per_step"],
+            count_kernels=tuple(PROFILED_KERNELS))
         log(f"  [7c] one {label} step under torch.profiler: "
             f"{json.dumps(cells[label]['profile'])}")
     t0 = time.perf_counter()
@@ -1331,6 +1495,11 @@ def grad_phase(mc, dev, out_dir, dragons):
     log(f"  K1 launches of 7d's graphed steps: {graphed}; the eager "
         f"control's, kept out of the kernels line: "
         f"{ab['launches']['eager']}")
+    out["cond_launches"] = gc.set_conditionals_launches
+    log(f"  set_conditionals_kernel launches of phase 7 (the train "
+        f"programs' forward and backward graphs): {out['cond_launches']}")
+    if out["cond_launches"] == 0:
+        raise AssertionError("phase 7 launched no set_conditionals_kernel")
     return out
 
 
@@ -1466,7 +1635,9 @@ def packing_steps(runs):
     """8a: one glass_train step and one dragons_pose step (phase 7's) with
     the packed levels off and on in turns (off, on, on, off): each turn a
     timed step (host clock to a synchronize) with its peak device memory,
-    then one more step under torch.profiler for its device busy time."""
+    then one more step under torch.profiler for its device busy time.
+    Levels that do not pack are another train program (its key holds the
+    levels' widths), built by an untimed step before the turns."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
@@ -1475,9 +1646,11 @@ def packing_steps(runs):
     out = {}
     try:
         for label in ("glass_train", "dragons_pose"):
-            step, state, _ = runs[label]
+            step, state, _, _ = runs[label]
             res = {m: dict(s=[], max_memory_allocated=[], device_busy_s=[])
                    for m in ("unpacked", "packed")}
+            R.packs = lambda st, r: False
+            step(state)                              # builds its program
             for mode in ("unpacked", "packed", "packed", "unpacked"):
                 R.packs = real if mode == "packed" else (lambda st, r: False)
                 torch.cuda.synchronize()
@@ -2226,6 +2399,84 @@ def conditionals_check(gc):
     return res
 
 
+def backward_conditionals_check(gc):
+    """10a: set_conditionals_kernel on a toy level of the train program's
+    shape: a forward tile graph whose predicates part writes five flags
+    (the four packed widths of a 4,096-ray mesh level and the dead level,
+    render.level_predicates(..., dead=True)) from a live count, and a
+    backward tile graph whose five IF bodies, each the captured vjp of a
+    gather (index_put_'s accumulate, as in a level's backward), read
+    those kept flags. For 8 live counts (0, the widths' edges, the whole
+    level) exactly the flagged body must write its gradient, equal to the
+    host's (render.taken_branch of the flags, then the gradient in
+    torch). Returns the number of launches whose bodies disagree."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
+
+    st = T.SceneStatic(counts=(0, 0, 0, 0, 0, 25280))
+    rows = 4096
+    branches = R.level_branches(st, rows, dead=True)
+    n = len(branches)
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    x = torch.rand((64, 3), device="cuda", requires_grad=True)
+    idx = torch.randint(0, 64, (rows,), device="cuda")
+    out = torch.zeros((n, 64, 3), device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+
+    def pred():
+        flags.copy_(R.level_predicates(st, rows, live, dead=True))
+
+    def body(k):
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad((x[idx] * float(k + 1)).sum(), x)
+        out[k].copy_(g)
+
+    def captured(fn):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin(pool=pool)
+            fn()
+            g.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return g
+
+    # the parts outlive the tile graphs: their pool and memory are
+    # what the graphs' kernels address
+    pred_part = captured(pred)
+    bodies = [captured(lambda k=k: body(k)) for k in range(n)]
+    fwd = gc.TileGraph([pred_part])
+    bwd = gc.TileGraph([(flags, bodies)])
+    wrong, taken = 0, []
+    for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 4 + 1, rows // 2,
+                   rows, 0):
+        live.fill_(n_live)
+        out.zero_()
+        fwd.launch()
+        bwd.launch()
+        k = R.taken_branch(flags.cpu())
+        with torch.enable_grad():
+            (want,) = torch.autograd.grad((x[idx] * float(k + 1)).sum(), x)
+        got = out.cpu()
+        ok = all(torch.equal(got[j], want.cpu() if j == k
+                             else torch.zeros(64, 3)) for j in range(n))
+        ok &= branches[k] == (R.DEAD if n_live == 0
+                              else R.level_width(st, rows, n_live))
+        wrong += not ok
+        taken.append(str(branches[k]))
+    log(f"  [10a] a toy backward level of {n} IF bodies (gather vjps) on "
+        f"the flags its forward wrote, 8 live counts: branches taken "
+        f"{taken}, launches disagreeing with the host's choice: {wrong}")
+    if wrong:
+        raise AssertionError(f"backward conditionals: {wrong} launches ran "
+                             f"other bodies than the flags say")
+    return wrong
+
+
 # K1's and K1b's device kernels as the profiler names them, and the
 # launch counters they stand for: mesh_walk_kernel<true> is the any-hit
 # walk, <false> the nearest and behind walks
@@ -2343,6 +2594,7 @@ def compiled_phase(mc, gc, d_calls, cells):
     out = {}
     out["alone_max_err"], out["alone_pre_err"] = captured_alone(mc, call)
     out["conditionals"] = conditionals_check(gc)
+    out["backward_conditionals_wrong"] = backward_conditionals_check(gc)
     log("  (K1 and set_conditionals launch counters zeroed)")
     mc.reset_launches()
     gc.set_conditionals_launches = 0
@@ -2399,6 +2651,10 @@ def main(argv=None):
                     help="only phase 10d's host-clock breakdown of graphed "
                          "dragons_equiv frames, as one JSON line (phase 10 "
                          "runs it in a process of its own)")
+    ap.add_argument("--train-profiles", action="store_true",
+                    help="only phase 7d's profiled train gradients, as one "
+                         "JSON line (phase 7 runs them in a process of its "
+                         "own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2412,6 +2668,9 @@ def main(argv=None):
     sys.path.insert(0, str(HERE))
     if args.host_breakdown:
         print(json.dumps(host_breakdown()))
+        return 0
+    if args.train_profiles:
+        print(json.dumps(train_profiles()))
         return 0
     import numpy as np
 
@@ -2597,7 +2856,7 @@ def main(argv=None):
     lap(6)
 
     # -- 7. the differentiable path -----------------------------------------
-    grad = grad_phase(MC, dev, out_dir, dragons)
+    grad = grad_phase(MC, GC, dev, out_dir, dragons)
     runs = grad.pop("runs")
     launches += grad.pop("launches")
     pre_launches += grad.pop("pre_launches")
@@ -2677,7 +2936,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/tile_graph.cu",
         "replaces": "raytracer_tpu/core/render.py:338",
-        "launches": p10.pop("cond_launches"),
+        "launches": grad.pop("cond_launches") + p10.pop("cond_launches"),
         **p10["conditionals"],
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,

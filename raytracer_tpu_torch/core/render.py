@@ -401,34 +401,46 @@ def level_width(static: T.SceneStatic, rows: int, n_live: int):
     return _packed_width(rows, n_live) if packs(static, rows) else None
 
 
-def level_branches(static: T.SceneStatic, rows: int) -> tuple:
+# The branch of a level whose rays are all parked (the JAX package's
+# ``_dead``, ``render.py:422-428``): :func:`dead_step`.
+DEAD = "dead"
+
+
+def level_branches(static: T.SceneStatic, rows: int, *,
+                   dead: bool = False) -> tuple:
     """The widths a level of ``rows`` rays may take, one conditional body
     each: R/16, R/4, R/2 and R where :func:`packs` holds, else (None,),
-    the whole level."""
-    if packs(static, rows):
-        return rows // 16, rows // 4, rows // 2, rows
-    return (None,)
+    the whole level; with ``dead``, then :data:`DEAD` (the train
+    program's pass-through of a level with no live ray)."""
+    out = ((rows // 16, rows // 4, rows // 2, rows) if packs(static, rows)
+           else (None,))
+    return out + (DEAD,) if dead else out
 
 
-def level_predicates(static: T.SceneStatic, rows: int, live):
+def level_predicates(static: T.SceneStatic, rows: int, live, *,
+                     dead: bool = False):
     """Which branch of :func:`level_branches` a level of ``rows`` rays
     takes, from its live count ``live`` (an int64 tensor, on the device or
     not): int32 flags [..., n_branches], at most one set, none when
     ``live`` is 0. The flag of width W is ``live > 0 and
     _packed_width(rows, live) == W``: :func:`level_width` in tensor ops,
     so that a CUDA graph computes it on the card (the JAX package's
-    ``lax.cond`` chain on ``jnp.any(w > 0)`` and the live count). The
-    tile program's conditional nodes read these flags; on the CPU it
-    reads them on the host (:func:`taken_branch`)."""
+    ``lax.cond`` chain on ``jnp.any(w > 0)`` and the live count). With
+    ``dead``, one more flag, ``live == 0`` (the branch :data:`DEAD`), so
+    that exactly one is set. The programs' conditional nodes read these
+    flags; on the CPU they read them on the host (:func:`taken_branch`)."""
     branches = level_branches(static, rows)
     alive = live > 0
     if branches == (None,):
-        return alive[..., None].to(torch.int32)
-    q, h = rows // 4, rows // 2
-    width = torch.where(live <= rows // 16, rows // 16, torch.where(
-        live <= q, q, torch.where(live <= h, h, rows)))
-    return torch.stack([alive & (width == w) for w in branches],
-                       -1).to(torch.int32)
+        flags = [alive]
+    else:
+        q, h = rows // 4, rows // 2
+        width = torch.where(live <= rows // 16, rows // 16, torch.where(
+            live <= q, q, torch.where(live <= h, h, rows)))
+        flags = [alive & (width == w) for w in branches]
+    if dead:
+        flags.append(~alive)
+    return torch.stack(flags, -1).to(torch.int32)
 
 
 def taken_branch(flags) -> int | None:
@@ -532,6 +544,26 @@ def level_step(scene: T.Scene, level: int, limit: int, o, d, w, img, perm,
     if level < limit and spawns(st):
         o, d, w = spawn_step(st, refl, refr)
         out.update(o=o, d=d, w=w, live=live_count(w))
+    return out
+
+
+def dead_step(static: T.SceneStatic, level: int, limit: int, rows: int,
+              img, perm, *, tracks_perm):
+    """:func:`level_step`'s outputs for a level of ``rows`` rays that are
+    all parked (the JAX package's ``_dead`` branch,
+    ``render.py:422-428``): the image and ``perm`` passed through as they
+    are (the caller copies them: a copy, not an added zero, keeps a
+    -0.0), and below ``limit`` in a scene that spawns zero-weight spawns,
+    parked, and a live count of 0."""
+    out = {"img": img}
+    if tracks_perm:
+        out["perm"] = perm
+    if level < limit and spawns(static):
+        n, dev = spawn_rows(static, rows), img.device
+        out.update(o=T.small_const(PARK_ORIGIN, dev, img.dtype).expand(n, 3),
+                   d=T.small_const(PARK_DIR, dev, img.dtype).expand(n, 3),
+                   w=torch.zeros((n, 3), dtype=img.dtype, device=dev),
+                   live=torch.zeros((), dtype=torch.int64, device=dev))
     return out
 
 

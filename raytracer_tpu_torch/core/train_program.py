@@ -1,45 +1,83 @@
-"""The compiled train step: each level's forward and backward replayed as
-CUDA graphs.
+"""The compiled train step: a microbatch's levels skipped or packed on the
+card by conditional nodes, one forward and one backward CUDA graph.
 
 Counterpart of the JAX package's jitted train steps (``make_optax_step``
 and ``make_sharded_train_step`` in ``raytracer_tpu/parallel/train.py``,
 and the train bench's ``jax.jit(train_step)``), where the forward, its
-per-level ``jax.checkpoint`` and the backward are one compiled program.
-PyTorch's counterpart of a compiled program is a CUDA graph, as in
-``core/tile_program.py`` for the frame. A :class:`TrainProgram` runs one
-microbatch of ``parallel.train.render_loss_and_grad`` as
+per-level ``jax.checkpoint`` and the backward are one compiled program and
+every level after the first is run or skipped by a ``lax.cond`` on its
+live rays, with a ``_dead`` branch (``raytracer_tpu/core/render.py:
+413-432``), a packed level's width coming from the ``lax.cond`` chain of
+``_packed_shade_level`` (``:338-348``). PyTorch's counterpart of a
+compiled program is a CUDA graph, and of ``lax.cond`` a conditional graph
+node, as in ``core/tile_program.py`` for the frame. A
+:class:`TrainProgram` runs one microbatch of
+``parallel.train.render_loss_and_grad`` as two graph launches:
 
-1. for each level L, in ``render.color_at``'s order: the host reads the
-   level's live count (L >= 1; the level's one sync), stops at 0 or picks
-   the width (``render.level_width``), draws the level's random jitter
-   into its buffers at the level's whole width (``render.draw_jitter``;
-   the levels not run draw theirs after the last), then replays the forward
-   graph of (L, width): ``render.level_step`` on the level's input
-   buffers, its outputs copied into level L + 1's input buffers;
-2. one graph for the loss (the MSE of ``render_loss``) and its gradient
-   with respect to the last image;
-3. the backward graph of each level run, in reverse order: the vjp of the
-   level from the gradients of its outputs (written by the level after
-   it, or by the loss graph) to those of its inputs (o, d, w and the
-   image) and of the parameters.
+1. the forward graph: level 0; then for each level L from 1 to the limit,
+   where the scene spawns, the flags of ``render.level_predicates(...,
+   dead=True)`` computed on the card from the live count (exactly one
+   set) and one IF node per branch of ``render.level_branches(...,
+   dead=True)``: the widths R/16, R/4, R/2 and R where the level packs,
+   else the whole level, and the dead level (``render.dead_step``), which
+   passes the image and ``perm`` through and writes zero-weight spawns
+   and a live count of 0. A body is ``render.level_step`` at its width on
+   level L's input buffers, its outputs copied into level L + 1's, and
+   writes its width into the level log. Then the loss (the MSE of
+   ``render_loss``) of the last level's image and its gradient with
+   respect to that image;
+2. the backward graph: the parameters' gradient sums set to -0.0; then
+   for each level from the limit down to 1 an IF node per branch on the
+   flags that level's forward wrote, a body being the vjp of the forward
+   body of its width (a dead level's copies the image's gradient through
+   and writes zero gradients for its other inputs, adding nothing to the
+   sums); then level 0's vjp.
 
-Hand-rolled capture, not ``torch.cuda.make_graphed_callables``: the levels
-run and their widths are host decisions between graphs, taken anew for
-every microbatch, so each (level, width) is its own pair of graphs, found
-by key as ``TileProgram`` finds its graphs; and the chain of gradients
-from one level's backward to the one before it goes through static
-buffers, which a list of separately graphed callables does not give.
+No value reaches the host between the levels or between the two
+launches. The step reads the card once, at its end (:meth:`settle`): the
+level logs of its microbatches, from which ``levels``, the launch counts
+and the parameters the step reached are rebuilt.
+
+Every level has buffers of its own (its inputs, its jitter, the gradients
+of its inputs), because the backward of a level reads what its forward
+read, and the dead level lets the loss always read the last level's image.
+The parts (level 0, a level's predicates, every branch of every level
+forward and backward, the loss, the head of the backward) are captured
+up front, at the first forward, each as a PyTorch graph that keeps its
+``cudaGraph_t`` (``keep_graph=True``), and chained by
+``ops/graph_cuda.TileGraph``. First each part runs once eagerly on the
+program's side stream (K1's shared-memory attribute, cuBLAS and the
+sort's scratch initialise there; of a level's branches only the widest
+commits its warm-up, since at a width narrower than the live count a
+branch computes wrong rays), then it is captured, which runs nothing. The
+graphs compute the microbatch.
+
+Memory. Without remat, a forward body's outputs and the tensors autograd
+saved for its backward stay allocated (its captured tensors are kept),
+and its backward body reads them. They live in a memory pool of that body
+alone: in the pool the other parts share, a part captured earlier could
+have its temporaries where a later capture keeps such tensors. Every
+width of every level keeps its tensors, so the kept memory of a level is
+up to (1/16 + 1/4 + 1/2 + 1) of its full-width forward's. A forward
+overwrites what the previous one saved: each microbatch's backward must
+run before the next forward, and :meth:`TrainProgram.forward` raises when
+a backward is pending. With ``remat=True`` (the counterpart of
+``jax.checkpoint`` per level) the forward bodies keep nothing, and each
+backward body recomputes its level and takes its vjp.
 
 Bit-equality with the eager step. A parameter used by several levels gets
 its gradient summed over them. The autograd engine of the eager step adds
 each contribution as it arrives, the deepest level's first, one at a
-time. Each backward graph here therefore takes the sum so far as the
-gradient of a view of the parameter made after the level's ops (an
-"anchor", the first node the engine runs), so it adds the level's
-contributions to it in the eager order. Graphed and eager steps give the
-same loss, gradients and updates bit for bit on the CPU; on cuda the loss
-is bit-equal and the gradients agree to rounding (``index_add_`` adds in
-atomic order there).
+time. Each backward body therefore takes the sum so far as the gradient
+of a view of the parameter made after the level's ops (an "anchor", the
+first node the engine runs), so it adds the level's contributions to it
+in the eager order. The sums start at -0.0, the additive identity of
+IEEE floats (+0.0 would turn a -0.0 into +0.0), so the first contribution
+comes through as it is, as eager's first ``.grad`` does; a table no level
+reaches keeps -0.0 and adds nothing to a sum over microbatches. Graphed
+and eager steps give the same loss, gradients and updates bit for bit on
+the CPU; on cuda the loss is bit-equal and the gradients agree to rounding
+(``index_add_`` adds in atomic order there).
 
 Buffers. The parameters live in the program's own leaf tensors (copied
 from each step's values by :meth:`TrainProgram.load`), so a train step
@@ -47,36 +85,24 @@ that returns a new ``Scene`` does not make a new program: a program is
 found again (:func:`program_for`) from what does not change between steps,
 the static scene, the frozen tables (the very same tensors), the
 parameters' shapes, the microbatch's ray count, ``remat`` and whether the
-rays require grad. Every level has buffers of its own (its inputs, its
-jitter, the gradients of its inputs), because the backward of a level
-reads what its forward read.
+rays require grad. The random area-light jitter of every level is drawn
+by the host into the level's buffers at its whole width before the
+forward launch, in level order, as ``render.color_at`` draws it.
 
-Without remat, a forward graph's outputs and the tensors autograd saved
-for its backward stay allocated (the captured forward's tensors are
-kept), and its backward graph reads them. They live in a memory pool of
-that forward graph's own: in the pool the other graphs share, a graph
-captured earlier could have its temporaries where a later capture keeps
-such tensors, and overwrite them on its next replay. A level's
-forward graph therefore overwrites what its previous replay saved: each
-microbatch's backward must run before the next forward, and
-:meth:`TrainProgram.forward` raises when a forward is pending. With
-``remat=True`` (the counterpart of ``jax.checkpoint`` per level) the
-forward graph keeps only the level's inputs and jitter, and the backward
-graph recomputes the level and takes its vjp.
-
-Each graph is captured the first time its key occurs: that occurrence
-runs eagerly on the program's side stream and commits its results (the
-step's own), then the same function is captured, which runs nothing, as
-in ``TileProgram``. Replays run K1 and K1b without the Python launch
-counters seeing them, so each graph records its launches at capture,
-takes them back off the counters and adds them on every replay.
+Replays run K1 and K1b without the Python launch counters seeing them, so
+each part records its launches at capture (taken back off the counters: a
+capture launches nothing), and :meth:`settle` adds the launches of the
+parts each microbatch ran, read from its level log.
 
 The update is not in a graph: ``train_step``'s SGD and a ``torch.optim``
 step run eagerly after the graphed gradient (a few launches per table).
 
-On a CPU scene the program runs the same functions on the same buffers
-without capture. A capture or replay error raises; nothing falls back to
-the eager step or to the CPU.
+On a CPU scene the program runs the same parts on the same buffers
+without capture, choosing each level's body by its flags read on the host
+(``render.taken_branch``). A card or a PyTorch without conditional nodes
+raises (``graph_cuda.check_support``), and so does a capture or launch
+error; nothing falls back to a host-decided loop, to the eager step or to
+the CPU.
 """
 
 from __future__ import annotations
@@ -102,14 +128,19 @@ def program_for(params, recombine, rows: int, *, remat: bool,
     scene by ``recombine`` (``partition_scene``'s), microbatches of
     ``rows`` rays, ``remat`` and ``ray_grad`` (whether origins and
     directions require grad), made on first use. Found again while the
-    scene's other tables are the same tensors; at most
-    :data:`MAX_PROGRAMS` are kept, the least recently used dropped with
-    its graphs' memory pool."""
+    scene's other tables are the same tensors and its levels take the same
+    widths (``render.level_branches``); at most :data:`MAX_PROGRAMS` are
+    kept, the least recently used dropped with its graphs' memory
+    pools."""
     scene = recombine(params)
+    st = scene.static
     rest = tuple(getattr(scene, k) for k in T.ARRAY_FIELDS
                  if k not in params)
-    key = (scene.static, scene.device, rows, bool(remat), tuple(ray_grad),
-           tuple((k, tuple(v.shape), v.dtype) for k, v in params.items()))
+    branches = tuple(R.level_branches(st, n) for n in
+                     R.level_rows(st, rows, st.recursion_limit))
+    key = (st, scene.device, rows, bool(remat), tuple(ray_grad),
+           tuple((k, tuple(v.shape), v.dtype) for k, v in params.items()),
+           branches)
     for i, prog in enumerate(_PROGRAMS):
         if prog.key == key and all(a is b for a, b in zip(prog.rest, rest)):
             _PROGRAMS.insert(0, _PROGRAMS.pop(i))
@@ -149,22 +180,30 @@ def _reached(outs, params) -> frozenset:
 
 
 class TrainProgram:
-    """A microbatch's levels, loss and backward as CUDA graphs (see the
+    """A microbatch's forward and backward as two CUDA graphs (see the
     module docstring).
 
-    ``stats``: graphs ``captured``, seconds spent capturing
-    (``capture_s``), ``replays`` and host ``syncs`` (live-count reads),
-    counted since the program was made. ``levels``: (level, rays, width)
-    of each level of the last forward. ``graphs``: the keys run so far
-    (on the CPU with no graph behind them)."""
+    ``stats``, counted since the program was made: ``captured`` parts, of
+    them conditional ``bodies``, seconds spent warming up, capturing and
+    chaining them (``capture_s``), graph launches (``replays``: two per
+    microbatch) and host ``syncs`` (one per step, :meth:`settle`).
+    ``levels``: (level, rays, width) of every level each microbatch of the
+    last step ran, microbatch after microbatch, read from the level logs
+    (width None: the level ran whole). ``graphs``: the captured parts by
+    key (on the CPU, the keys run, with no graph behind them)."""
 
     def __init__(self, key, recombine, rest):
-        static, device, rows, remat, ray_grad, sig = key
+        static, device, rows, remat, ray_grad, sig, _ = key
         self.key, self.rest = key, rest
         self.static, self.device, self.rows = static, device, rows
         self.remat, self.ray_grad = remat, ray_grad
         self.limit = static.recursion_limit
         self.level_rows = R.level_rows(static, rows, self.limit)
+        # the level whose image the loss reads: past the last level that
+        # may run, every level having a body, the dead one included
+        self.end = len(self.level_rows)
+        self.branches = {lv: R.level_branches(static, n, dead=True)
+                         for lv, n in enumerate(self.level_rows) if lv}
         self.thread_perm = not static.has_blend
         self.tracks_perm = self.thread_perm and R.packs(static, rows)
         self.capture = device.type == "cuda"
@@ -181,9 +220,11 @@ class TrainProgram:
         self.bufs = {}
         self.graphs = {}          # key -> (CUDAGraph, launch counts, kept)
         self.reached = {}         # backward key -> parameters it reaches
-        self._valid = {}          # forward key -> this step's outputs
-        self._tape = None         # the pending forward's levels
+        self._kept = {}           # CPU: the forward bodies' outputs
+        self._pending = []        # [log on its way to the host, event,
+        #                            whether its backward was launched]
         self._capturing = False
+        self.fwd_graph = self.bwd_graph = None
         with torch.no_grad():
             self._put(("o", 0), torch.zeros((rows, 3), device=device,
                                             requires_grad=ray_grad[0]))
@@ -195,27 +236,48 @@ class TrainProgram:
                 self._put(("perm", 0), torch.arange(rows, device=device))
             for k, p in self.params.items():
                 self._put(("acc", k), torch.zeros_like(p))
+            self._put(("log",), torch.zeros(len(self.level_rows),
+                                            dtype=torch.int32, device=device))
+        self.log = self.bufs[("log",)]
         if self.capture:
-            # the pool every graph's temporaries share; a forward graph
-            # whose tensors are kept gets one of its own (``pools``)
+            from raytracer_tpu_torch.ops import graph_cuda
+            self.versions = graph_cuda.check_support()
+            # the pool the parts' temporaries share; a forward body whose
+            # tensors are kept gets one of its own (``pools``)
             self.pool = torch.cuda.graph_pool_handle()
             self.pools = [self.pool]
             self.stream = torch.cuda.Stream(device)
-            self.live_host = torch.zeros((), dtype=torch.int64).pin_memory()
-        self.stats = dict(captured=0, capture_s=0.0, replays=0, syncs=0)
-        self.levels = []
+        self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
+                          syncs=0)
+        self._levels = []
+
+    @property
+    def levels(self):
+        """(level, rays, width) of every level each microbatch of the last
+        step ran (see the class docstring), the logs on their way read
+        first (:meth:`settle`)."""
+        if any(done for _, _, done in self._pending):
+            self.settle()
+        return self._levels
 
     # -- buffers -----------------------------------------------------------
     def _put(self, name, value):
         """``value`` into buffer ``name``, made on first use with
         ``value``'s shape, dtype and requires_grad."""
+        buf = self._make(name, value)
+        with torch.no_grad():
+            buf.copy_(value)
+
+    def _make(self, name, value):
+        """Buffer ``name``, made (zeroed) on first use with ``value``'s
+        shape, dtype and requires_grad, which a later value must share."""
         buf = self.bufs.get(name)
         grad = value.requires_grad
         if buf is None:
             if self._capturing:
                 raise RuntimeError(f"train program: buffer {name} first "
                                    f"made inside a capture")
-            buf = self.bufs[name] = torch.empty(
+            buf = self.bufs[name] = torch.zeros(
                 value.shape, dtype=value.dtype,
                 device=self.device).requires_grad_(grad)
         elif (buf.shape, buf.dtype, buf.requires_grad) != (
@@ -224,12 +286,18 @@ class TrainProgram:
                                f"{tuple(buf.shape)} {buf.dtype} grad "
                                f"{buf.requires_grad}, given "
                                f"{tuple(value.shape)} {value.dtype} {grad}")
-        with torch.no_grad():
-            buf.copy_(value)
+        return buf
 
     def _commit(self, outs: dict):
         for name, v in outs.items():
             self._put(name, v)
+
+    def _grad_of(self, k, level):
+        """The buffer of the gradient of level ``level``'s input ``k``."""
+        name = ("g_" + k, level)
+        if name not in self.bufs:
+            self._make(name, self.bufs[(k, level)].detach())
+        return self.bufs[name]
 
     def _jitter(self, level):
         """Level ``level``'s jitter buffers, at its whole width."""
@@ -240,10 +308,13 @@ class TrainProgram:
         for ai, (us, vs) in enumerate(self.static.area_steps):
             name = ("jitter", level, ai)
             if name not in self.bufs:
-                self._put(name, torch.zeros((rows, us * vs, 4), dtype=F32,
-                                            device=self.device))
+                self._make(name, torch.empty((rows, us * vs, 4), dtype=F32,
+                                             device=self.device))
             out.append(self.bufs[name])
         return tuple(out)
+
+    def _flags(self, level):
+        return self.bufs[("flags", level)]
 
     @contextlib.contextmanager
     def _side(self):
@@ -258,7 +329,7 @@ class TrainProgram:
             yield
         cur.wait_stream(self.stream)
 
-    # -- the graphs' functions ---------------------------------------------
+    # -- the parts ---------------------------------------------------------
     def _outputs(self, level, width):
         """Level ``level``'s outputs from its input buffers, with grad."""
         b = self.bufs
@@ -270,26 +341,67 @@ class TrainProgram:
                 width=width, thread_perm=self.thread_perm,
                 tracks_perm=self.tracks_perm)
 
-    def _fwd_commit(self, level):
-        def commit(outs):
-            self._commit({("live",) if k == "live" else (k, level + 1): v
-                          for k, v in outs.items()})
-        return commit
+    def _named(self, level, outs):
+        """Level ``level``'s outputs by the buffer names of level + 1."""
+        return {("live",) if k == "live" else (k, level + 1): v
+                for k, v in outs.items()}
 
-    def _loss(self, end):
-        """The MSE of the image after level ``end - 1`` against the target,
-        and its gradient with respect to that image; also zeroes the
-        parameters' gradient sums for the backward."""
-        img = self.bufs[("img", end)]
+    def _fwd(self, level, width):
+        """Forward body ``width`` of ``level``: its outputs (by output
+        name, with grad); its width goes into the level log (level 0
+        first marks every later level skipped, -1)."""
+        if level == 0:
+            self.log.fill_(-1)
+        self.log[level].fill_(width or 0)
+        return self._outputs(level, width)
+
+    def _fwd_commit(self, level):
+        return lambda outs: self._commit(self._named(level, outs))
+
+    def _predicates(self, level):
+        return {("flags", level): R.level_predicates(
+            self.static, self.level_rows[level], self.bufs[("live",)],
+            dead=True)}
+
+    def _dead(self, level):
+        """The dead body of ``level`` (``render.dead_step``), by buffer
+        name."""
+        b = self.bufs
+        return self._named(level, R.dead_step(
+            self.static, level, self.limit, self.level_rows[level],
+            b[("img", level)], b.get(("perm", level)),
+            tracks_perm=self.tracks_perm))
+
+    def _dead_commit(self, outs):
+        """The dead body's outputs into the next level's buffers. A spawn
+        buffer no body has made yet (on the CPU, where buffers are made as
+        the levels first run) is left unmade: no level reads it before a
+        live body makes it."""
+        for name, v in outs.items():
+            buf = self.bufs.get(name)
+            if buf is None:
+                if name[0] in ("o", "d", "w"):
+                    continue
+                buf = self._make(name, v)
+            with torch.no_grad():
+                buf.copy_(v)
+
+    def _loss(self):
+        """The MSE of the last level's image against the target, and its
+        gradient with respect to that image."""
+        img = self.bufs[("img", self.end)]
         with torch.enable_grad():
-            c = R.finish_step(img, self.bufs.get(("perm", end)))
+            c = R.finish_step(img, self.bufs.get(("perm", self.end)))
             loss = torch.mean((c - self.bufs[("target",)]) ** 2)
             g_img = (torch.autograd.grad(loss, img)[0] if img.requires_grad
                      else torch.zeros_like(img))
-        out = {("loss",): loss.detach(), ("g_img", end): g_img}
-        for k, p in self.params.items():
-            out[("acc", k)] = torch.zeros_like(p)
-        return out
+        return {("loss",): loss.detach(), ("g_img", self.end): g_img}
+
+    def _head(self):
+        """The backward's head: the parameters' gradient sums set to
+        -0.0, the additive identity (see the module docstring)."""
+        return {("acc", k): torch.full_like(p, -0.0)
+                for k, p in self.params.items()}
 
     def _bwd(self, level, width, outs):
         """The vjp of level ``level`` at ``width``: the gradients of its
@@ -298,7 +410,7 @@ class TrainProgram:
         b = self.bufs
         if outs is None:
             outs = self._outputs(level, width)
-        diff = [(outs[k], b[("g_" + k, level + 1)]) for k in DIFF
+        diff = [(outs[k], self._grad_of(k, level + 1)) for k in DIFF
                 if k in outs and outs[k].requires_grad]
         key = ("bwd", level, width)
         if key not in self.reached:
@@ -323,30 +435,36 @@ class TrainProgram:
             out[("acc", k)] = g
         return out
 
-    # -- running -----------------------------------------------------------
-    def _run(self, key, fn, commit, capture_fn=None, keep=False):
-        """``fn``'s results into the buffers (``commit``). On the CPU run it
-        directly. On cuda replay the graph of ``key``, or at its first
-        occurrence run ``fn`` eagerly (the step's results), then capture
-        ``capture_fn`` (default ``fn``), keeping the captured outputs with
-        ``keep`` (in a memory pool of the graph's own). Returns the eager
-        outputs, or None after a replay."""
-        if not self.capture:
-            outs = fn()
-            commit(outs)
-            self.graphs.setdefault(key, None)
-            return outs
-        if key in self.graphs:
-            graph, counts, _ = self.graphs[key]
-            graph.replay()
-            MC.add_launches(counts)
-            self.stats["replays"] += 1
-            return None
-        outs = fn()
-        commit(outs)
-        t0 = time.perf_counter()
+    def _bwd_body(self, level, width):
+        """Backward body ``width`` of ``level`` on cuda: the vjp of its
+        forward body's kept outputs (recomputed with remat), or the dead
+        body's backward."""
+        if width == R.DEAD:
+            return self._dead_bwd(level)
+        return self._bwd(level, width, None if self.remat
+                         else self.graphs[("fwd", level, width)][2])
+
+    def _dead_bwd(self, level):
+        """The backward of the dead body of ``level``: the image's
+        gradient copied through, zero gradients for its other inputs, the
+        parameters' sums untouched."""
+        self.reached.setdefault(("bwd", level, R.DEAD), frozenset())
+        out = {}
+        for k in DIFF:
+            buf = self.bufs.get((k, level))
+            if buf is not None and buf.requires_grad:
+                out[("g_" + k, level)] = (
+                    self._grad_of("img", level + 1) if k == "img"
+                    else torch.zeros_like(buf))
+        return out
+
+    # -- capture -----------------------------------------------------------
+    def _capture(self, key, fn, commit, keep=False):
+        """Captures ``fn`` with its results committed (a graph that keeps
+        its ``cudaGraph_t``), in a memory pool of its own with ``keep``,
+        whose captured outputs are then kept; records its launches."""
         before = MC.launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         pool = self.pool
         if keep:
             pool = torch.cuda.graph_pool_handle()
@@ -355,28 +473,129 @@ class TrainProgram:
         try:
             graph.capture_begin(pool=pool)
             try:
-                captured = (capture_fn or fn)()
-                commit(captured)
+                outs = fn()
+                commit(outs)
             finally:
                 graph.capture_end()
         finally:
             self._capturing = False
         counts = {k: v - before[k] for k, v in MC.launch_counts().items()}
         MC.add_launches(counts, -1)
-        self.graphs[key] = (graph, counts, captured if keep else None)
+        self.graphs[key] = (graph, counts, outs if keep else None)
         self.stats["captured"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        return outs
+        self.stats["bodies"] += key[0] in ("fwd", "bwd") and key[1] > 0
 
-    def _live(self) -> int:
-        """The next level's live count on the host: the level's sync."""
-        live = self.bufs[("live",)]
-        self.stats["syncs"] += 1
-        if not self.capture:
-            return int(live)
-        self.live_host.copy_(live, non_blocking=True)
-        self.stream.synchronize()
-        return int(self.live_host)
+    def _build(self):
+        """Warms up, captures and chains every part (on the side stream):
+        the forward and the backward graph."""
+        from raytracer_tpu_torch.ops import graph_cuda
+
+        t0 = time.perf_counter()
+        keep, levels = not self.remat, range(1, self.end)
+        # warm-up (the graphs compute the step anew): level 0 and the
+        # predicates commit, and of a level's branches the widest, which
+        # holds every live ray, so that the next level warms up on real
+        # rays; the others only make their outputs' buffers
+        outs0 = self._fwd(0, None)
+        self._fwd_commit(0)(outs0)
+        for level in levels:
+            self._commit(self._predicates(level))
+            *live, _ = self.branches[level]
+            for width in live:
+                outs = self._fwd(level, width)
+                named = self._named(level, outs)
+                for name, v in named.items():
+                    self._make(name, v)
+                for name, v in self._bwd(level, width,
+                                         None if self.remat else outs).items():
+                    self._make(name, v)
+                if width == live[-1]:
+                    self._commit(named)
+                del outs, named
+            self._dead(level)
+            self._dead_bwd(level)
+        self._commit(self._loss())
+        self._commit(self._head())
+        self._commit(self._bwd(0, None, None if self.remat else outs0))
+        del outs0
+
+        self._capture(("fwd", 0, None), lambda: self._fwd(0, None),
+                      self._fwd_commit(0), keep)
+        for level in levels:
+            self._capture(("flags", level),
+                          lambda level=level: self._predicates(level),
+                          self._commit)
+            for width in self.branches[level]:
+                if width == R.DEAD:
+                    self._capture(("fwd", level, width),
+                                  lambda level=level: self._dead(level),
+                                  self._dead_commit)
+                else:
+                    self._capture(("fwd", level, width),
+                                  lambda level=level, width=width:
+                                  self._fwd(level, width),
+                                  self._fwd_commit(level), keep)
+        self._capture(("loss",), self._loss, self._commit)
+        self._capture(("head",), self._head, self._commit)
+        for level in [*reversed(levels), 0]:
+            for width in self.branches.get(level, (None,)):
+                self._capture(("bwd", level, width),
+                              lambda level=level, width=width:
+                              self._bwd_body(level, width), self._commit)
+
+        g = self.graphs
+        fwd = [g[("fwd", 0, None)][0]]
+        bwd = [g[("head",)][0]]
+        for level in levels:
+            fwd += [g[("flags", level)][0],
+                    (self._flags(level), [g[("fwd", level, w)][0]
+                                          for w in self.branches[level]])]
+        for level in reversed(levels):
+            bwd.append((self._flags(level), [g[("bwd", level, w)][0]
+                                             for w in self.branches[level]]))
+        fwd.append(g[("loss",)][0])
+        bwd.append(g[("bwd", 0, None)][0])
+        self.fwd_graph = graph_cuda.TileGraph(fwd)
+        self.bwd_graph = graph_cuda.TileGraph(bwd)
+        self.stats["capture_s"] += time.perf_counter() - t0
+
+    # -- running -----------------------------------------------------------
+    def _taken(self, level):
+        """The branch ``level`` takes, its flags read on the host (the
+        CPU's choice of body)."""
+        return self.branches[level][R.taken_branch(self._flags(level))]
+
+    def _forward_cpu(self):
+        """The forward on the CPU: the parts in order, a level's body
+        chosen by its flags read on the host."""
+        levels = range(1, self.end)
+        for level in [0, *levels]:
+            width = None
+            if level:
+                self._commit(self._predicates(level))
+                self.graphs.setdefault(("flags", level), None)
+                width = self._taken(level)
+            self.graphs.setdefault(("fwd", level, width), None)
+            if width == R.DEAD:
+                self._dead_commit(self._dead(level))
+                continue
+            outs = self._fwd(level, width)
+            self._fwd_commit(level)(outs)
+            if not self.remat:
+                self._kept[level] = outs
+        self._commit(self._loss())
+        self.graphs.setdefault(("loss",), None)
+
+    def _backward_cpu(self):
+        """The backward on the CPU: the parts in reverse order, each
+        level's body chosen by the flags its forward wrote."""
+        self._commit(self._head())
+        for level in [*reversed(range(1, self.end)), 0]:
+            width = self._taken(level) if level else None
+            self.graphs.setdefault(("bwd", level, width), None)
+            self._commit(self._dead_bwd(level) if width == R.DEAD
+                         else self._bwd(level, width, self._kept.get(level)))
+        self._kept.clear()
 
     def load(self, params: dict):
         """Copies the step's parameter values into the program's."""
@@ -385,83 +604,98 @@ class TrainProgram:
                 p.copy_(params[k])
 
     def forward(self, origins, directions, target, generator=None):
-        """One microbatch's forward: the loss (a buffer of the program,
-        valid until the next forward). Raises while the previous
-        forward's backward is pending: its graphs would overwrite what
-        that backward reads."""
-        if self._tape is not None:
+        """Enqueues one microbatch's forward, one graph launch on cuda (the
+        first builds the program's graphs): the loss, a buffer of the
+        program valid until the next forward. Reads nothing from the card.
+        Raises while the previous forward's backward is pending: its
+        graphs would overwrite what that backward reads."""
+        if self._pending and not self._pending[-1][2]:
             raise RuntimeError(
-                "train program: a forward replayed before the backward of "
+                "train program: a forward launched before the backward of "
                 "the previous one; call backward() first")
-        st = self.static
-        if R.draws_jitter(st):
+        if R.draws_jitter(self.static):
             generator = R._seeded(generator, self.device)
-        tape = []
         with self._side():
             self._put(("o", 0), origins)
             self._put(("d", 0), directions)
             self._put(("target",), target)
-            level, rows, width = 0, self.rows, None
-            while True:
+            for level, rows in enumerate(self.level_rows):
                 R.draw_jitter(self.scene, rows, generator,
                               out=self._jitter(level))
-                key = ("fwd", level, width)
-                outs = self._run(
-                    key, lambda: self._outputs(level, width),
-                    self._fwd_commit(level), keep=not self.remat)
-                if not self.remat:
-                    self._valid[key] = (outs if outs is not None
-                                        else self.graphs[key][2])
-                tape.append((level, rows, width))
-                if level == self.limit or not R.spawns(st):
-                    break
-                n_live = self._live()
-                if n_live == 0:
-                    break
-                level += 1
-                rows = R.spawn_rows(st, rows)
-                width = R.level_width(st, rows, n_live)
-            end = level + 1
-            for n in self.level_rows[end:]:   # the levels not run draw too
-                R.draw_jitter(self.scene, n, generator)
-            self._run(("loss", end), lambda: self._loss(end), self._commit)
-        self._tape = self.levels = tape
+            if not self.capture:
+                self._forward_cpu()
+            else:
+                if self.fwd_graph is None:
+                    self._build()
+                self.fwd_graph.launch(self.device)
+                self.stats["replays"] += 1
+            self._send_log()
         return self.bufs[("loss",)]
 
+    def _send_log(self):
+        """Starts the copy of the forward's level log to the host, read by
+        :meth:`settle`."""
+        if not self.capture:
+            self._pending.append([self.log.clone(), None, False])
+            return
+        host = torch.empty(self.log.shape, dtype=self.log.dtype,
+                           pin_memory=True)
+        host.copy_(self.log, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pending.append([host, done, False])
+
     def backward(self):
-        """The pending forward's backward: (the parameters' gradients by
-        name, None for a table the level graphs never reach, as an eager
-        leaf's ``.grad`` stays None; the gradients of the origins and the
+        """Enqueues the pending forward's backward, one graph launch on
+        cuda: (the parameters' gradient sums by name, -0.0 for a table the
+        microbatch did not reach; the gradients of the origins and the
         directions, None where they do not require grad). Buffers of the
-        program, valid until the next backward."""
-        if self._tape is None:
+        program, valid until the next backward. Which tables the step
+        reached, :meth:`settle` says."""
+        if not self._pending or self._pending[-1][2]:
             raise RuntimeError("train program: backward() without a "
                                "pending forward")
-        tape, self._tape = self._tape, None
+        with self._side():
+            if not self.capture:
+                self._backward_cpu()
+            else:
+                self.bwd_graph.launch(self.device)
+                self.stats["replays"] += 1
+        self._pending[-1][2] = True
         b = self.bufs
-        try:
-            with self._side():
-                last, _, _ = tape[-1]
-                for k in ("o", "d", "w"):     # the last level's spawns
-                    name = (k, last + 1)
-                    if name in b and b[name].requires_grad:
-                        self._put(("g_" + k, last + 1),
-                                  torch.zeros_like(b[name]))
-                for level, _, width in reversed(tape):
-                    fkey = ("fwd", level, width)
-                    self._run(
-                        ("bwd", level, width),
-                        lambda: self._bwd(level, width,
-                                          self._valid.get(fkey)),
-                        self._commit,
-                        capture_fn=lambda: self._bwd(
-                            level, width, None if self.remat
-                            else self.graphs[fkey][2]))
-        finally:
-            self._valid.clear()
-        reached = frozenset().union(*(
-            self.reached[("bwd", lv, w)] for lv, _, w in tape))
-        grads = {k: b[("acc", k)] if k in reached else None
-                 for k in self.params}
+        grads = {k: b[("acc", k)] for k in self.params}
         rays = tuple(b.get(("g_" + k, 0)) for k in ("o", "d"))
         return grads, rays
+
+    def settle(self) -> frozenset:
+        """The step's one read of the card: waits for the level logs of the
+        microbatches whose backward was launched, rebuilds ``levels`` from
+        them, adds the launches of the parts they ran to the counters, and
+        returns the names of the parameters they reached (an eager leaf's
+        ``.grad`` stays None for the others)."""
+        done = [p for p in self._pending if p[2]]
+        self._pending = [p for p in self._pending if not p[2]]
+        if done and done[-1][1] is not None:
+            done[-1][1].synchronize()     # the stream's later events
+        self.stats["syncs"] += 1
+        self._levels, reached = [], set()
+        for log, _, _ in done:
+            log = log.tolist()
+            self._count(("fwd", 0, None), ("loss",), ("head",),
+                        ("bwd", 0, None))
+            self._levels.append((0, self.rows, None))
+            reached |= self.reached[("bwd", 0, None)]
+            for level in range(1, self.end):
+                width = R.DEAD if log[level] < 0 else log[level] or None
+                self._count(("flags", level), ("fwd", level, width),
+                            ("bwd", level, width))
+                reached |= self.reached[("bwd", level, width)]
+                if width != R.DEAD:
+                    self._levels.append((level, self.level_rows[level],
+                                         width))
+        return frozenset(reached)
+
+    def _count(self, *keys):
+        if self.capture:
+            for key in keys:
+                MC.add_launches(self.graphs[key][1])

@@ -1,14 +1,19 @@
-// The tile graph: one CUDA graph per tile whose levels are skipped or run,
-// at their packed width, by conditional nodes (CUDA 12.4 or later).
+// The tile graph: one CUDA graph per tile, or per train microbatch's
+// forward or backward, whose levels are skipped or run, at their packed
+// width, by conditional nodes (CUDA 12.4 or later).
 //
 // Counterpart of the JAX package's lax.cond chain inside its compiled tile
-// (raytracer_tpu/core/render.py:338-348 and :413-433). The parts of a tile
-// (level 0, a level's predicates, each branch of each level, the finish)
-// are captured by PyTorch as graphs of their own; this file puts them
-// together as child-graph nodes in one chain:
+// and train step (raytracer_tpu/core/render.py:338-348 and :413-433). The
+// parts of a tile (level 0, a level's predicates, each branch of each
+// level, the finish) are captured by PyTorch as graphs of their own; this
+// file puts them together as child-graph nodes in one chain:
 //
 //   level 0 -> [predicates L -> set_conditionals L -> IF(branch 0) -> ...
 //               -> IF(branch n-1)] for each level L -> finish
+//
+// A train microbatch's backward chains its levels in reverse on the flags
+// its forward wrote, with no predicates part. A level has at most five
+// branches: the four packed widths and the train program's dead level.
 //
 // set_conditionals_kernel copies a level's int32 flags (at most one set,
 // written on the card by the predicates part) into the conditional
@@ -20,7 +25,7 @@
 
 #include <cstdint>
 
-#define MAX_BRANCHES 4
+#define MAX_BRANCHES 5
 
 struct Handles {
   cudaGraphConditionalHandle h[MAX_BRANCHES];

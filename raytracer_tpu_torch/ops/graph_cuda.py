@@ -1,13 +1,17 @@
-"""The tile graph: conditional CUDA graph nodes for the frame's level skip
-and packed width.
+"""The tile graph: conditional CUDA graph nodes for the level skip and
+packed width of a frame's tile and of a train microbatch.
 
 Counterpart of the JAX package's ``lax.cond`` chain in its compiled tile
-(``raytracer_tpu/core/render.py:338-348`` and ``:413-433``). A
-:class:`TileGraph` puts a tile's parts, each captured by PyTorch as a graph
-of its own (``torch.cuda.CUDAGraph(keep_graph=True)``), into one CUDA graph
-(``csrc/tile_graph.cu``): level 0, then for each level its predicates, the
-kernel ``set_conditionals_kernel`` that copies the predicates' flags into
-the conditional handles, and one IF node per branch, then the finish.
+and train step (``raytracer_tpu/core/render.py:338-348`` and
+``:413-433``). A :class:`TileGraph` puts parts, each captured by PyTorch
+as a graph of its own (``torch.cuda.CUDAGraph(keep_graph=True)``), into
+one CUDA graph (``csrc/tile_graph.cu``). A tile (``core/tile_program``):
+level 0, then for each level its predicates, the kernel
+``set_conditionals_kernel`` that copies the predicates' flags into the
+conditional handles, and one IF node per branch, then the finish. A train
+microbatch (``core/train_program``): the same for its forward, the dead
+level among the branches, and a backward graph whose levels, in reverse,
+read the flags the forward wrote.
 
 The source is built with nvcc for sm_90a into ``build/`` at first use and
 bound through ctypes, as K1 is (``ops/mesh_cuda.py``). Conditional nodes
@@ -18,7 +22,7 @@ is missing.
 
 The plain version of ``set_conditionals_kernel`` is the host's choice of
 branch, ``core/render.taken_branch`` of the same flags, which the tile
-program takes on the CPU.
+and train programs take on the CPU.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from raytracer_tpu_torch.ops import mesh_cuda as MC
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "tile_graph.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-MAX_BRANCHES = 4
+MAX_BRANCHES = 5          # four packed widths and the dead level
 MIN_CUDA = 12040          # conditional nodes: CUDA 12.4
 
 _lib_lock = threading.Lock()

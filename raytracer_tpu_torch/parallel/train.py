@@ -17,10 +17,12 @@ The JAX package's ``make_optax_step`` becomes :func:`make_optim_step` over
 
 The JAX package jits its train steps; here every entry point that takes
 a gradient runs it through ``core/train_program.TrainProgram`` by default
-(``graphs=True``): each level's forward and backward replayed as CUDA
-graphs on the card, the same steps on the same buffers without capture
-on the CPU. ``graphs=False`` runs :func:`render_loss` eagerly and
-backpropagates through autograd, every op launched from the host.
+(``graphs=True``): on the card a microbatch is one forward and one
+backward CUDA graph launch, its levels skipped or packed by conditional
+nodes, and a step reads the card once, at its end; on the CPU the same
+steps run on the same buffers without capture. ``graphs=False`` runs
+:func:`render_loss` eagerly and backpropagates through autograd, every op
+launched from the host.
 """
 
 from __future__ import annotations
@@ -138,12 +140,14 @@ def render_loss_and_grad(params, recombine, origins, directions, target,
 
     ``graphs=True`` runs each microbatch through a
     :class:`~raytracer_tpu_torch.core.train_program.TrainProgram`: on cuda,
-    each level's forward and backward replayed as CUDA graphs (captured
-    at first use, found again on later steps); on the CPU, the same steps
-    on the same buffers without capture. ``graphs=False`` runs the eager
-    :func:`render_loss` and ``backward()``, every op launched from the
-    host. Both give the same loss and gradients (bit for bit on the CPU;
-    on cuda the gradients to rounding, see the program's docstring)."""
+    one forward and one backward CUDA graph launch, the levels skipped or
+    packed on the card (captured at first use, found again on later
+    steps), and one read of the card at the step's end; on the CPU, the
+    same steps on the same buffers without capture. ``graphs=False``
+    runs the eager :func:`render_loss` and ``backward()``, every op
+    launched from the host. Both give the same loss and gradients (bit
+    for bit on the CPU; on cuda the gradients to rounding, see the
+    program's docstring)."""
     if graphs:
         loss, grads = _graphed_loss_and_grad(
             params, recombine, origins, directions, target, generator,
@@ -164,8 +168,13 @@ def _graphed_loss_and_grad(params, recombine, origins, directions, target,
                            generator, n_micro, remat):
     """:func:`render_loss_and_grad` through the train program, with the
     eager path's arithmetic: per-microbatch losses summed and gradients
-    added in order, then scaled by ``1 / n_micro``. A table the render
-    never reaches gets None, as an eager leaf's ``.grad``."""
+    added in order, then scaled by ``1 / n_micro``. The microbatches are
+    enqueued without a read of the card; the step's one read, at its end,
+    brings the level logs and with them which tables the render reached
+    (a table it never reaches gets None, as an eager leaf's ``.grad``). A
+    microbatch's sum of a table it does not reach is -0.0, which adds
+    nothing, so the first microbatch that reaches a table gives its sum
+    bit for bit, as eager's first ``.grad`` is that microbatch's."""
     from raytracer_tpu_torch.core.train_program import program_for
 
     full_f32()
@@ -185,16 +194,17 @@ def _graphed_loss_and_grad(params, recombine, origins, directions, target,
                             generator)
         grads, g_rays = prog.backward()
         if any(ray_grad):
+            # the camera's graph, outside the program, eagerly
             torch.autograd.backward(
                 [x[sl] for x, need in zip(rays, ray_grad) if need],
                 [g for g, need in zip(g_rays, ray_grad) if need],
                 retain_graph=i < n_micro - 1)
         loss_sum = loss_sum + loss
         for k, g in grads.items():
-            if g is not None:
-                total[k] = g.clone() if k not in total else total[k].add_(g)
+            total[k] = g.clone() if k not in total else total[k].add_(g)
+    reached = prog.settle()
     scale = 1.0 if n_micro == 1 else 1.0 / n_micro
-    out = {k: total[k] * scale if k in total else None for k in params}
+    out = {k: total[k] * scale if k in reached else None for k in params}
     return (loss.clone() if n_micro == 1 else loss_sum / n_micro), out
 
 

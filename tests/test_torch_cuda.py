@@ -398,13 +398,15 @@ def test_graphed_frames_equal_eager(name):
 @pytest.mark.parametrize("remat", [False, True], ids=["keep", "remat"])
 @pytest.mark.parametrize("name", ["glass_area", "flagship"])
 def test_graphed_train_step_equals_eager(name, remat):
-    """train_step through the train program (each level's forward and
-    backward replayed as CUDA graphs) against graphs=False, two
-    microbatches: the losses bit-equal, the updated tables within rtol
-    1e-3, atol 1e-5 (``index_add_`` adds in atomic order on the card),
-    the same K1 launches per step; a second step, on a new scene object
-    of new parameter tensors (the same values) and the same frozen
-    tables, as a train step makes, captures nothing new."""
+    """train_step through the train program (a microbatch one forward and
+    one backward graph launch, its levels skipped or packed by conditional
+    nodes) against graphs=False, two microbatches: the losses bit-equal,
+    the updated tables within rtol 1e-3, atol 1e-5 (``index_add_`` adds in
+    atomic order on the card), the same K1 launches per step (the graphed
+    side counted from the level logs, after the first step, whose warm-up
+    runs every branch once); a second step, on a new scene object of new
+    parameter tensors (the same values) and the same frozen tables, as a
+    train step makes, captures nothing new."""
     _require_cuda()
     from raytracer_tpu_torch import transforms as tf
     from raytracer_tpu_torch.camera import Camera, ray_grid
@@ -428,7 +430,7 @@ def test_graphed_train_step_equals_eager(name, remat):
     target = torch.full_like(o, 0.2)
     TPG.drop_programs()
     out = {}
-    for graphs in (True, False):
+    for graphs in (True, True, False):      # the first graphed step builds
         MC.reset_launches()
         g = torch.Generator(device="cuda").manual_seed(3)
         out[graphs] = (*train_step(sc, o, d, target, lr=0.05, n_micro=2,
@@ -443,6 +445,10 @@ def test_graphed_train_step_equals_eager(name, remat):
     (prog,) = TPG.programs()
     captured = prog.stats["captured"]
     assert captured == len(prog.graphs) > 0
+    assert prog.stats["bodies"] > 0 and prog.stats["replays"] == 2 * 2 * 2
+    if name == "glass_area":
+        assert kg["k1"] > 0
+        assert any(w is not None for _, _, w in prog.levels)
     params, recombine = partition_scene(sc)
     again = recombine({k: v.clone() for k, v in params.items()})
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -450,7 +456,162 @@ def test_graphed_train_step_equals_eager(name, remat):
                         generator=g)
     assert torch.equal(lg2, lg)
     assert TPG.programs() == [prog] and prog.stats["captured"] == captured
-    assert prog.stats["replays"] > 0
+
+
+def _paths_scene(device):
+    """A mirror sphere low in the frame over a slightly reflective floor at
+    64x32: the first half of the rays (the top rows) sees only sky, so its
+    level 1 is dead; the second half's reflections run on."""
+    import math
+
+    from raytracer_tpu_torch import transforms as tf
+    from raytracer_tpu_torch.camera import Camera, ray_grid
+    from raytracer_tpu_torch.scene import specs as S
+
+    items = [
+        S.PointLight(position=(-10.0, 10.0, -10.0)),
+        S.Plane(transform=tf.translation(0.0, -1.0, 0.0),
+                material=S.Material(color=(0.9, 0.8, 0.7), specular=0.0,
+                                    reflective=0.2)),
+        S.Sphere(material=S.Material(color=(0.2, 0.3, 1.0), diffuse=0.6,
+                                     reflective=0.6)),
+    ]
+    cam = Camera(64, 32, math.pi / 3).with_transform(
+        tf.view_transform((0.0, 0.0, -5.0), (0.0, 1.3, 0.0),
+                          (0.0, 1.0, 0.0)))
+    o, d = ray_grid(cam, device=device)
+    target = torch.as_tensor(np.random.default_rng(2).uniform(
+        0, 1, (o.shape[0], 3)), dtype=torch.float32, device=device)
+    return build_scene(items, recursion_limit=3, device=device), o, d, target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["keep", "remat"])
+def test_graphed_step_is_two_launches_per_microbatch(remat, monkeypatch):
+    """A graphed gradient of two microbatches on different paths (the
+    first dead from level 1): after the step that builds the program, a
+    step is 2 x n_micro graph launches and one host sync (the level logs,
+    at its end), with torch's sync debug mode set to raise, so no live
+    count is read; the loss equal to graphs=False bit for bit, the
+    gradients to rounding, and the paths read from the logs."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import train_program as TPG
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss_and_grad)
+
+    sc, o, d, target = _paths_scene("cuda")
+    params, recombine = partition_scene(sc)
+
+    def step(graphs=True):
+        return render_loss_and_grad(params, recombine, o, d, target,
+                                    n_micro=2, remat=remat, graphs=graphs)
+
+    step()                                       # builds the program
+    calls = {"launch": 0, "sync": 0}
+    real_launch = GC.TileGraph.launch
+
+    def launch(self, device=None):
+        calls["launch"] += 1
+        return real_launch(self, device)
+
+    monkeypatch.setattr(GC.TileGraph, "launch", launch)
+    for owner in (torch.cuda, torch.cuda.Stream, torch.cuda.Event):
+        real = owner.synchronize
+
+        def sync(*a, _real=real, **kw):
+            calls["sync"] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(owner, "synchronize", sync)
+    torch.cuda.synchronize()
+    calls.update(launch=0, sync=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, grads = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert calls == {"launch": 2 * 2, "sync": 1}
+    monkeypatch.undo()
+    prog = TPG.programs()[0]
+    micro = [[]]
+    for level, _, _ in prog.levels:
+        if level == 0 and micro[-1]:
+            micro.append([])
+        micro[-1].append(level)
+    assert micro[0] == [0] and micro[1][:2] == [0, 1]
+    want_loss, want = step(graphs=False)
+    assert torch.equal(loss, want_loss)
+    for k, g in want.items():
+        torch.testing.assert_close(grads[k], g, rtol=1e-3, atol=1e-5)
+    assert float(grads["mat"].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_backward_level_runs_the_flagged_body():
+    """A toy level of the train program's shape on the card: a forward
+    tile graph whose predicates part writes five flags (four packed widths
+    and the dead level) from a live count, and a backward tile graph whose
+    five IF bodies, each the captured vjp of a gather (``index_put_``'s
+    accumulate, as a level's backward), read those kept flags: exactly the
+    flagged body writes its gradient, launch after launch."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+
+    GC.check_support()
+    st = T.SceneStatic(counts=(0, 0, 0, 0, 0, 25280))
+    rows = 4096
+    branches = R.level_branches(st, rows, dead=True)
+    n = len(branches)
+    assert n == GC.MAX_BRANCHES
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    x = torch.rand((64, 3), device="cuda", requires_grad=True)
+    idx = torch.randint(0, 64, (rows,), device="cuda")
+    out = torch.zeros((n, 64, 3), device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+
+    def pred():
+        flags.copy_(R.level_predicates(st, rows, live, dead=True))
+
+    def body(k):
+        with torch.enable_grad():
+            y = x[idx] * float(k + 1)
+            (g,) = torch.autograd.grad(y.sum(), x)
+        out[k].copy_(g)
+
+    def captured(fn):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                                   # warm-up
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin(pool=pool)
+            fn()
+            g.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return g
+
+    # the parts outlive the tile graphs: their pool and memory are
+    # what the graphs' kernels address
+    pred_part = captured(pred)
+    bodies = [captured(lambda k=k: body(k)) for k in range(n)]
+    fwd = GC.TileGraph([pred_part])
+    bwd = GC.TileGraph([(flags, bodies)])
+    counts = torch.bincount(idx, minlength=64).float()[:, None].cpu()
+    for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 2, rows, 0, 300):
+        live.fill_(n_live)
+        out.zero_()
+        fwd.launch()
+        bwd.launch()
+        k = R.taken_branch(flags.cpu())
+        assert branches[k] == (R.DEAD if n_live == 0
+                               else R.level_width(st, rows, n_live))
+        got = out.cpu()
+        for j in range(n):
+            want = counts * (j + 1) if j == k else torch.zeros(64, 1)
+            assert torch.equal(got[j], want.expand(64, 3)), (n_live, j)
 
 
 @pytest.mark.cuda
