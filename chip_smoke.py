@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit; build the kernels (K1 and its
-   pre-pass K1b, and the tile graph's set_conditionals_kernel) from
+   pre-pass K1b, the tile graph's set_conditionals_kernel, and
+   table_gather's forward kernel and the two routes of its backward) from
    raytracer_tpu_torch/csrc with nvcc for sm_90a, one nvcc per source,
    started together, and print ptxas' report; then, on a line of its own,
    the versions conditional graph nodes depend on (PyTorch, the CUDA it
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero before the final line):
    flagship() 1280x720, all depth 4, through render's default path (one
    CUDA graph per tile, core/tile_program.py; the warm-up frame captures
    it): one warm-up frame, the median of 3 timed frames, K1 launches per
-   frame by mode (counted from the level logs), peak device memory, one
+   frame by mode (counted from the level logs), table_gather's forward
+   launches (which must not be 0), peak device memory, one
    PPM each. Then, for the busiest K1
    call of each mode of a mid-frame tile (CUDA events): the call's time,
    its kernel's and its pre-pass's (kernel and torch) times, the CTAs
@@ -81,13 +83,16 @@ Phases (any failure exits non-zero before the final line):
    render_loss_and_grad of rays that require grad, made from the eye by
    the differentiable camera, and no scene parameter); s/step, rays/s
    fwd+bwd, peak memory, K1 launches per step by mode, the losses, which
-   must fall. Every K1 call of each cell's warm-up step (the eager
+   must fall, and (G, K, indices, dtype, differentiated) of every
+   table_gather call of glass_train's and flagship_train's first step. Every K1 call of each cell's warm-up step (the eager
    warm-up of every branch, each level's widest committed so that the
    next level's branches warm up on its rays; 32,768-ray microbatches at
    S = 32 slices per subtile for glass_train, 131,072 rays at S = 8 for
    dragons_pose) is recorded with its outputs, which are held against the
    plain version as in phase 2, in 65,536-ray blocks. (7c) one
-   step of each cell under torch.profiler (K1/K1b events recorded).
+   step of each cell under torch.profiler (K1/K1b and table_gather events
+   recorded; glass_train's and flagship_train's must hold no event of
+   PyTorch's indexing backward, indexing_backward_kernel*).
    Then
    ``raytracer_tpu_torch.examples.inverse_render --pose`` on the card.
    (7d, launch counters zeroed just before) each cell's gradient on one
@@ -106,8 +111,23 @@ Phases (any failure exits non-zero before the final line):
    glass_train and dragons_pose gradient and one eager dragons_pose
    gradient under torch.profiler: device busy, idle share, the host's
    cudaGraphLaunch and cudaLaunchKernel calls, and K1's and K1b's device
-   events, which must equal the counters' deltas (flagship_train
-   launches no K1).
+   and table_gather's device events, each of which must equal its
+   kernel's counter's delta (flagship_train launches no K1), and no
+   indexing_backward_kernel event in the glass gradient. Then each
+   cell's s/step (7b, 7d) and device busy (7c, 7d). table_gather's
+   forward, grad and reduce launches of phase 7 (7d's graphed side
+   included) must not be 0. (7e, after the counts are read)
+   table_gather replayed with a seeded gradient on glass_train's and
+   flagship_train's largest differentiated calls of a table of more
+   than one row (real gradients: the material rows), on the largest
+   differentiated call of all (flagship_train's one-row padding table,
+   every index 0), and on a 2048 x 2048 image's texels (4,194,304 rows,
+   the backward's fixed-point route) read by as many indices: the
+   forward bit-equal to the plain version, the backward
+   twice bit-equal and within rtol 1e-5 of the f64 sum by index (of the
+   sum of the terms' magnitudes), the kernels', the plain versions' and
+   the library's (table[idx] and its index_put_ backward; index_add_
+   beside it) CUDA-event times, the bound in bytes.
 8. packed levels, resumable and multi-process rendering, the examples
    (launch counters zeroed again just before it, and read just after 8d):
    (8a) one dragons_equiv tile and one glass_mesh tile, each packed
@@ -195,8 +215,10 @@ Phases (any failure exits non-zero before the final line):
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object with the kernels' numbers (launches: the main-path runs
-of phases 5 to 10; set_conditionals_kernel's: phases 7 and 10), and
-the device JSON object.
+of phases 5 to 10; set_conditionals_kernel's: phases 7 and 10;
+table_gather's: phases 5 and 7, by kernel, its times from 7e's largest
+call of a real gradient, each replay's beside them), and the device JSON
+object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
 """
@@ -276,6 +298,54 @@ class Recorder:
         if self.outputs:
             call["k"] = [x.cpu().numpy() for x in out]
         return out
+
+
+class GatherRecorder:
+    """Wraps ops.gather_cuda.table_gather (as intersect.table_gather calls
+    it) and counts every call made outside a capture by (G, K, indices,
+    dtype, whether the table takes a gradient), keeping a copy of the
+    inputs of two calls whose table does: the largest by indices x K
+    (``largest``) and the largest of a table of more than one row
+    (``largest_rows``); the calls still go through."""
+
+    def __init__(self, ga):
+        self.ga = ga
+        self.calls = {}
+        self.largest = self.largest_rows = None
+
+    def __enter__(self):
+        self.orig = self.ga.table_gather
+        self.ga.table_gather = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ga.table_gather = self.orig
+
+    def __call__(self, table, idx):
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing():
+            g = table.shape[0]
+            k = table.numel() // max(g, 1)
+            grad = table.requires_grad and torch.is_grad_enabled()
+            key = (g, k, idx.numel(), str(table.dtype).replace("torch.", ""),
+                   grad)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            size = idx.numel() * k
+            if grad and (self.largest is None or size > self.largest[2]):
+                self.largest = (table.detach().clone(), idx.detach().clone(),
+                                size)
+            if grad and g > 1 and (self.largest_rows is None
+                                   or size > self.largest_rows[2]):
+                self.largest_rows = (table.detach().clone(),
+                                     idx.detach().clone(), size)
+        return self.orig(table, idx)
+
+    def summary(self):
+        """The calls as [G, K, indices, dtype, differentiated, count],
+        largest first."""
+        return [[*key, n] for key, n in sorted(
+            self.calls.items(), key=lambda kv: -kv[0][2] * kv[0][1])]
 
 
 def mode_of(call):
@@ -621,6 +691,84 @@ def k1_numbers(mc, call, reps):
     return res
 
 
+def gather_numbers(ga, table, idx, reps=20):
+    """7e: table_gather's kernels on one recorded call's inputs (a train
+    step's largest differentiated lookup) with a gradient drawn from a
+    seed: the forward against the plain version bit for bit; the backward
+    twice, bit-equal, and against the f64 sum by index to rtol 1e-5 of
+    the sum of the terms' magnitudes (signed sums cancel), as is the plain
+    version (``index_add_``, atomics on the card); CUDA-event times of the
+    kernels' forward and backward, of the plain versions, and of the
+    library's: ``table[idx]`` and its autograd backward (``index_put_``
+    with accumulate into zeros), with ``index_add_`` beside it. The bound:
+    the bytes both directions must move (indices twice, the output rows
+    written and the gradient rows read, the table read and its gradient
+    written) over 3.35 TB/s; the adds over the f32 rate are far below.
+    The train calls' inputs fit the 50 MB L2, as in the step, so their
+    times are warm."""
+    import torch
+
+    g, n = table.shape[0], idx.numel()
+    k = table.numel() // g
+    gen = torch.Generator(device=table.device).manual_seed(11)
+    grad = torch.randn((*idx.shape, *table.shape[1:]), device=table.device,
+                       generator=gen)
+    fwd, plain_fwd = ga.gather_forward(table, idx), ga.gather_forward_plain(
+        table, idx)
+    if not torch.equal(fwd, plain_fwd):
+        raise AssertionError("table_gather: the forward kernel differs from "
+                             "its plain version")
+    b1, b2 = ga.gather_backward(grad, idx, g), ga.gather_backward(grad, idx,
+                                                                   g)
+    if not torch.equal(b1, b2):
+        raise AssertionError("table_gather: two backward calls differ")
+    flat = idx.reshape(-1).clamp(0, g - 1)
+    terms = grad.reshape(n, k).double()
+    want = torch.zeros((g, k), dtype=torch.float64, device=table.device)
+    scale = want.clone().index_add_(0, flat, terms.abs())
+    want.index_add_(0, flat, terms)
+    plain_bwd = ga.gather_backward_plain(grad, idx, g)
+    rel = {}
+    for name, x in (("kernel", b1), ("plain", plain_bwd)):
+        err = (x.reshape(g, k).double() - want).abs()
+        if not bool((err <= 1e-5 * scale).all()):
+            raise AssertionError(f"table_gather backward ({name}) is not "
+                                 f"within rtol 1e-5 of the f64 sum")
+        rel[name] = float((err / scale.clamp_min(1e-30)).max())
+    leaf = table.detach().clone()
+    zeros2 = torch.zeros((g, k), device=table.device)
+    res = dict(
+        g=g, k=k, indices=n, table_dtype=str(table.dtype),
+        fwd_ms=cuda_ms(lambda: ga.gather_forward(table, idx), reps),
+        bwd_ms=cuda_ms(lambda: ga.gather_backward(grad, idx, g), reps),
+        plain_fwd_ms=cuda_ms(lambda: ga.gather_forward_plain(table, idx),
+                             reps),
+        plain_bwd_ms=cuda_ms(lambda: ga.gather_backward_plain(grad, idx, g),
+                             reps),
+        library_fwd_ms=cuda_ms(lambda: leaf[idx], reps),
+        library_bwd_ms=cuda_ms(lambda: torch.zeros_like(leaf).index_put_(
+            (idx,), grad, accumulate=True), reps),
+        index_add_ms=cuda_ms(lambda: zeros2.zero_().index_add_(
+            0, flat, grad.reshape(n, k)), reps),
+        bwd_route="fixed" if ga._library().table_gather_fixed(n, g, k)
+        else "tile",
+        workspace_words=int(ga._library().table_gather_workspace(n, g, k)),
+        max_rel_err_vs_f64=rel,
+        max_abs_err=float((b1 - plain_bwd).abs().max()),
+        backward_bit_equal=True, forward_bit_equal=True)
+    res["ms"] = res["fwd_ms"] + res["bwd_ms"]
+    res["plain_ms"] = res["plain_fwd_ms"] + res["plain_bwd_ms"]
+    res["library_ms"] = res["library_fwd_ms"] + res["library_bwd_ms"]
+    ib = idx.element_size()
+    nbytes = 2 * n * ib + 2 * n * k * 4 + 2 * g * k * table.element_size()
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n * k / PEAK_F32_FLOPS * 1e3
+    res.update(bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
 def frame(scene, cam, label, out_dir, mc):
     """Warm-up + median of 3 frames of render() (its default: the tile
     program's CUDA graphs); returns (numbers, the last u8 frame)."""
@@ -905,7 +1053,7 @@ def eye_rays(cam, eye, order, to=None, up=None):
         eye, scenes.GRAD_TO if to is None else to,
         scenes.GRAD_UP if up is None else up))
     o, d = ray_grid_tensor(inv, cam.hsize, cam.vsize, cam.field_of_view)
-    return o[order], d[order]
+    return o.index_select(0, order), d.index_select(0, order)
 
 
 def eye_loss_and_grads(mc, scene, cam, target, order, eye):
@@ -1144,16 +1292,18 @@ def train_cells(mc, dev, dragons):
     to step from, its gradient function of ``graphs`` (and of a context
     around the gradient's call) on one fixed state, its microbatches)}
     for the profiles and 7d, the max |t_kernel - t_plain| over the
-    warm-up steps' K1 calls)."""
+    warm-up steps' K1 calls, {cell: the GatherRecorder of glass_train's
+    and flagship_train's first step})."""
     import torch
 
     from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.ops import gather_cuda as GA
     from raytracer_tpu_torch.parallel import (
         partition_scene, render_loss_and_grad, train_step)
     from raytracer_tpu_torch.scene import build_scene
 
     h, v = TRAIN_SIZE
-    out, runs, max_err = {}, {}, 0.0
+    out, runs, max_err, gathers = {}, {}, 0.0, {}
     for label, (items, cam) in (
             ("glass_train", scenes.glass_mesh(56, h, v)),
             ("flagship_train", scenes.flagship(h, v))):
@@ -1165,8 +1315,13 @@ def train_cells(mc, dev, dragons):
             return train_step(scene, o, d, black, lr=1e-3, n_micro=4,
                               remat=False, graphs=graphs)
 
-        out[label], sc, e = timed_steps(label, mc, step, sc, o.shape[0])
+        with GatherRecorder(GA) as gathers[label]:   # the first step's
+            out[label], sc, e = timed_steps(label, mc, step, sc, o.shape[0])
         max_err = max(max_err, e)
+        out[label]["table_gather_calls"] = gathers[label].summary()
+        log(f"  [7b] {label}: table_gather calls of its first step "
+            f"[G, K, indices, dtype, differentiated, count]: "
+            f"{json.dumps(out[label]['table_gather_calls'])}")
 
         def grads(graphs, around=contextlib.nullcontext, sc=sc, o=o, d=d,
                   black=black):
@@ -1217,7 +1372,7 @@ def train_cells(mc, dev, dragons):
                                resolution=f"{h}x{v}", eye_grads=list(grads),
                                eye=eye.detach().cpu().tolist())
     runs["dragons_pose"] = (pose_step, None, pose_grads, 1)
-    return out, runs, max(max_err, e)
+    return out, runs, max(max_err, e), gathers
 
 
 def grad_diff(label, got, want):
@@ -1327,8 +1482,9 @@ def graphed_vs_eager(mc, runs):
         return loss, g, sec, delta, st
 
     for label, (_, _, grads, n_micro) in runs.items():
-        res = {g: dict(s=[], k1=[], peak=0, host_reads=[], host_syncs=[],
-                       graph_launches=[]) for g in ("graphed", "eager")}
+        res = {g: dict(s=[], k1=[], gather=[], peak=0, host_reads=[],
+                       host_syncs=[], graph_launches=[])
+               for g in ("graphed", "eager")}
         got = {}
         for graphs in (True, False, False, True):
             side = "graphed" if graphs else "eager"
@@ -1340,6 +1496,8 @@ def graphed_vs_eager(mc, runs):
             reads = probe.count - reads
             res[side]["s"].append(sec)
             res[side]["k1"].append({k: delta[k] for k in kernels})
+            res[side]["gather"].append({k: delta[k] for k in
+                                        GATHER_KERNELS})
             res[side]["host_reads"].append(reads)
             res[side]["host_syncs"].append(reads + st.get("syncs", 0))
             res[side]["graph_launches"].append(st.get("replays", 0))
@@ -1432,20 +1590,50 @@ def train_profiles():
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             before = mc.launch_counts()
-            prof = profile_run(lambda: grads(graphs), sec,
-                               count_kernels=tuple(PROFILED_KERNELS))
+            prof = profile_run(lambda: grads(graphs), sec, count_kernels=(
+                *PROFILED_KERNELS, *GATHER_EVENTS))
             counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
             prof["counted"] = {name: sum(counted[k] for k in keys)
                                for name, keys in PROFILED_KERNELS.items()}
+            prof["counted"].update({name: counted[k] for k, name in
+                                    GATHER_KERNELS.items()})
             prof["s_unprofiled"] = sec
             side = "graphed" if graphs else "eager"
             out[f"{label}:{side}"] = prof
-            if prof["kernel_events"] != prof["counted"]:
+            events = {k: prof["kernel_events"][k] for k in prof["counted"]}
+            if events != prof["counted"]:
                 raise AssertionError(
                     f"{label} {side} gradient: the profiler's kernel events "
-                    f"{prof['kernel_events']} differ from the launch "
-                    f"counters {prof['counted']}")
+                    f"{events} differ from the launch counters "
+                    f"{prof['counted']}")
+            if label == "glass_train":
+                no_indexing_backward(prof, f"{label} {side} gradient")
     return out
+
+
+# PyTorch's indexing backward (index_put_ with accumulate), which the
+# train steps no longer run, and table_gather's kernels, as the profiler
+# names them: counted in the train profiles beside PROFILED_KERNELS
+# (by the launch counter of each: ops/gather_cuda.LAUNCHES)
+GATHER_KERNELS = {"gather": "table_gather_kernel",
+                  "gather_grad": "table_gather_grad_kernel",
+                  "gather_reduce": "table_gather_reduce_kernel",
+                  "gather_scale": "table_gather_scale_kernel",
+                  "gather_add": "table_gather_add_kernel",
+                  "gather_finish": "table_gather_finish_kernel"}
+GATHER_EVENTS = ("indexing_backward_kernel", *GATHER_KERNELS.values())
+# the kernels the train cells' lookups launch (their tables are small: the
+# backward's tile route); the fixed-point route runs in 7e's texels
+PATH_GATHER_KERNELS = ("gather", "gather_grad", "gather_reduce")
+
+
+def no_indexing_backward(prof, label):
+    """Fails if a profile holds a device event of PyTorch's indexing
+    backward: the train steps' lookups go through table_gather."""
+    n = prof["kernel_events"]["indexing_backward_kernel"]
+    if n:
+        raise AssertionError(f"{label}: {n} indexing_backward_kernel "
+                             f"events in its profile")
 
 
 def grad_phase(mc, gc, dev, out_dir, dragons):
@@ -1454,20 +1642,23 @@ def grad_phase(mc, gc, dev, out_dir, dragons):
     numbers keep each train cell's step and state under "runs", for phase
     8's packing off/on steps."""
     from raytracer_tpu_torch.examples import inverse_render
+    from raytracer_tpu_torch.ops import gather_cuda as GA
 
     log("[7] the differentiable path (K1 and set_conditionals launch "
         "counters zeroed)")
     mc.reset_launches()
     gc.set_conditionals_launches = 0
     out = {"parity": grad_parity(mc, dev)}
-    cells, runs, out["max_err"] = train_cells(mc, dev, dragons)
+    cells, runs, out["max_err"], gathers = train_cells(mc, dev, dragons)
     out["cells"], out["runs"] = cells, runs
     for label, (step, state, _, _) in runs.items():
         cells[label]["profile"] = profile_run(
             lambda: step(state), cells[label]["s_per_step"],
-            count_kernels=tuple(PROFILED_KERNELS))
+            count_kernels=(*PROFILED_KERNELS, *GATHER_EVENTS))
         log(f"  [7c] one {label} step under torch.profiler: "
             f"{json.dumps(cells[label]['profile'])}")
+        if label in ("glass_train", "flagship_train"):
+            no_indexing_backward(cells[label]["profile"], f"{label} step")
     t0 = time.perf_counter()
     pose = inverse_render.main(["--pose"], log=lambda *a: None)
     out["inverse_render_pose"] = dict(
@@ -1479,8 +1670,10 @@ def grad_phase(mc, gc, dev, out_dir, dragons):
     out["launches"] = mc.mesh_nearest.launches
     out["by_mode"] = dict(mc.mesh_nearest.launches_by_mode)
     out["pre_launches"] = mc.live_supergroups.launches
+    out["gather_launches"] = GA.launch_counts()
     log(f"  K1 launches on the differentiable path: {out['launches']} "
-        f"{out['by_mode']}; K1b launches: {out['pre_launches']}")
+        f"{out['by_mode']}; K1b launches: {out['pre_launches']}; "
+        f"table_gather launches: {out['gather_launches']}")
     if out["by_mode"]["nearest"] == 0 or out["by_mode"]["behind"] == 0:
         raise AssertionError(f"phase 7 did not run K1 in nearest and "
                              f"behind modes: {out['by_mode']}")
@@ -1492,14 +1685,73 @@ def grad_phase(mc, gc, dev, out_dir, dragons):
     out["pre_launches"] += graphed["prepass"]
     out["by_mode"] = {k: out["by_mode"][k] + graphed[k]
                       for k in out["by_mode"]}
-    log(f"  K1 launches of 7d's graphed steps: {graphed}; the eager "
-        f"control's, kept out of the kernels line: "
+    out["gather_launches"] = {k: v + graphed[k] for k, v in
+                              out["gather_launches"].items()}
+    log(f"  K1 and table_gather launches of 7d's graphed steps: {graphed}; "
+        f"the eager control's, kept out of the kernels line: "
         f"{ab['launches']['eager']}")
+    if not all(out["gather_launches"][k] for k in PATH_GATHER_KERNELS):
+        raise AssertionError(f"phase 7 did not launch table_gather's forward "
+                             f"and backward kernels: "
+                             f"{out['gather_launches']}")
+    steps = {}
+    for label, cell in cells.items():
+        ge = ab[label]
+        steps[label] = dict(
+            s_per_step_7b=cell["s_per_step"],
+            s_per_step_7d_graphed=ge["graphed"]["s_per_step"],
+            s_per_step_7d_eager=ge["eager"]["s_per_step"],
+            device_busy_s_7c=cell["profile"]["device_busy_s"],
+            device_busy_s_7d=ab["profile"].get(f"{label}:graphed", {}).get(
+                "device_busy_s"))
+    out["steps"] = steps
+    log(f"  [7d] s/step and device busy: {json.dumps(steps)}")
     out["cond_launches"] = gc.set_conditionals_launches
     log(f"  set_conditionals_kernel launches of phase 7 (the train "
         f"programs' forward and backward graphs): {out['cond_launches']}")
     if out["cond_launches"] == 0:
         raise AssertionError("phase 7 launched no set_conditionals_kernel")
+    # 7e, after the counts are read: glass_train's and flagship_train's
+    # largest differentiated lookups of a table of more than one row, the
+    # largest of all (a padding table of one row), and a texture's texels
+    out["gather"] = gather_replays(GA, gathers)
+    return out
+
+
+def gather_replays(ga, gathers):
+    """7e: gather_numbers on each cell's largest differentiated call of a
+    table of more than one row (a real gradient: the material rows), on
+    the largest differentiated call of all (flagship_train's one-row
+    dummy uv_colors, every index 0), and on the texels of a 2048 x 2048
+    image ([4,194,304, 3], the backward's fixed-point route) read by as
+    many indices as flagship_train's largest call, spread over the image
+    with a tenth on five texels. Returns them by name; "main", the
+    largest of the real calls, gives the kernels line its numbers."""
+    import torch
+
+    out, real = {}, []
+    for label, rec in gathers.items():
+        if rec.largest_rows is not None:
+            real.append((rec.largest_rows[2], f"{label}:rows"))
+            out[f"{label}:rows"] = gather_numbers(ga, *rec.largest_rows[:2])
+    label, rec = max(((k, g) for k, g in gathers.items()
+                      if g.largest is not None),
+                     key=lambda kv: kv[1].largest[2])
+    out[f"{label}:largest"] = gather_numbers(ga, *rec.largest[:2])
+    n = rec.largest[1].numel()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    g = 2048 * 2048
+    texels = torch.rand((g, 3), device="cuda", generator=gen)
+    idx = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.1,
+                      torch.randint(0, 5, (n,), device="cuda", generator=gen),
+                      torch.randint(0, g, (n,), device="cuda", generator=gen))
+    out["texels_2048"] = gather_numbers(ga, texels, idx)
+    for name, res in out.items():
+        log(f"  [7e] table_gather on {name}: {json.dumps(res)}")
+    if out["texels_2048"]["bwd_route"] != "fixed":
+        raise AssertionError("7e: the texels did not take the fixed-point "
+                             "route")
+    out["main"] = max(real)[1]
     return out
 
 
@@ -2679,6 +2931,7 @@ def main(argv=None):
     from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core.render import color_at, render
     from raytracer_tpu_torch.mesh_cases import TIE_INDEX
+    from raytracer_tpu_torch.ops import gather_cuda as GA
     from raytracer_tpu_torch.ops import graph_cuda as GC
     from raytracer_tpu_torch.ops import mesh_cuda as MC
     from raytracer_tpu_torch.scene import build_scene, specs as S
@@ -2704,13 +2957,15 @@ def main(argv=None):
     log(f"[1] device: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        builds = [pool.submit(m.build_library) for m in (MC, GC)]
-        (lib_path, build_log), (tg_path, _) = [b.result() for b in builds]
-    log(f"  built {lib_path.name} and {tg_path.name} in "
+    with ThreadPoolExecutor(3) as pool:     # one nvcc per source, together
+        builds = [pool.submit(m.build_library) for m in (MC, GC, GA)]
+        (lib_path, build_log), (tg_path, _), (ga_path, ga_log) = [
+            b.result() for b in builds]
+    log(f"  built {lib_path.name}, {tg_path.name} and {ga_path.name} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "error")):
+    for line in (build_log + ga_log).splitlines():
+        if any(k in line for k in ("registers", "spill", "smem", "error",
+                                   "Compiling entry")):
             log("  ptxas:", line.strip())
     support = GC.versions()
     try:
@@ -2819,10 +3074,15 @@ def main(argv=None):
     launches = MC.mesh_nearest.launches
     by_mode = dict(MC.mesh_nearest.launches_by_mode)
     pre_launches = MC.live_supergroups.launches
+    gather_launches = GA.launch_counts()
     log(f"  K1 launches on the main path: {launches} {by_mode}; "
-        f"K1b launches: {pre_launches}")
+        f"K1b launches: {pre_launches}; table_gather launches: "
+        f"{gather_launches}")
     if pre_launches == 0:
         raise AssertionError("the pre-pass kernel was not launched")
+    if gather_launches["gather"] == 0:
+        raise AssertionError("table_gather's forward kernel was not "
+                             "launched")
     dl = results["dragons_equiv"]["k1_launches_per_frame"]
     gl = results["glass_mesh"]["k1_launches_per_frame"]
     if not (dl["nearest"] > 0 and dl["any_hit"] > 0 and gl["behind"] > 0):
@@ -2858,6 +3118,8 @@ def main(argv=None):
     # -- 7. the differentiable path -----------------------------------------
     grad = grad_phase(MC, GC, dev, out_dir, dragons)
     runs = grad.pop("runs")
+    gather_launches = {k: v + grad["gather_launches"][k]
+                       for k, v in gather_launches.items()}
     launches += grad.pop("launches")
     pre_launches += grad.pop("pre_launches")
     max_err = max(max_err, grad["max_err"])
@@ -2938,6 +3200,24 @@ def main(argv=None):
         "replaces": "raytracer_tpu/core/render.py:338",
         "launches": grad.pop("cond_launches") + p10.pop("cond_launches"),
         **p10["conditionals"],
+    }, {
+        "name": "table_gather",
+        "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/table_gather.cu",
+        "replaces": "raytracer_tpu/core/intersect.py:56",
+        "replaces_kind": "XLA, not Pallas",
+        "launches": sum(gather_launches.values()),
+        "launches_by_kernel": gather_launches,
+        "call": grad["gather"]["main"],
+        **{k: grad["gather"][grad["gather"]["main"]][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms",
+            "library_fwd_ms", "library_bwd_ms", "index_add_ms", "g", "k",
+            "indices", "bwd_route")},
+        "by_call": {name: {k: res[k] for k in (
+            "g", "k", "indices", "bwd_route", "ms", "plain_ms", "bound_ms",
+            "library_ms", "max_abs_err")}
+            for name, res in grad["gather"].items() if name != "main"},
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,

@@ -18,9 +18,13 @@ meets each primitive FAMILY at once:
   kernel on a CUDA tensor, its plain version on a CPU tensor.
 
 The result is a per-ray candidate table ``(t, gid, u, v)`` with +inf for
-misses. The JAX package's ``select_col``/``table_gather`` (which dodge the
-TPU's gather custom-call) are plain indexing and ``torch.gather`` here;
-argmin ties resolve to the first index, as ``first_hit`` assumes.
+misses. Every per-primitive lookup the JAX package routes through
+``table_gather`` goes through :func:`table_gather` here: on the card the
+kernels of ``csrc/table_gather.cu`` (a copy forward, a deterministic
+reduction backward), on the CPU plain indexing with an ``index_add_``
+backward. ``select_col`` is ``torch.gather``: it reads one column per row,
+so its backward has no duplicate index to walk. argmin ties resolve to
+the first index, as ``first_hit`` assumes.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.csg import apply_csg
+from raytracer_tpu_torch.ops import gather_cuda as GA
 from raytracer_tpu_torch.ops import mesh_cuda as MC
 
 INF = float("inf")
@@ -69,6 +74,18 @@ def dot3(a, b):
 def select_col(x, idx):
     """x[r, idx[r]] along the last axis."""
     return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def table_gather(table, idx):
+    """``table[idx]`` for a table [G, *rest] and integer indices of any
+    shape -> [*idx, *rest]: the counterpart of the JAX package's
+    ``intersect.table_gather``. Its gradient, where the table requires
+    one, is the sum of the output's gradient rows by index. On a CUDA
+    tensor the kernels of ``csrc/table_gather.cu`` (the backward
+    deterministic: the same inputs give the same bits, eagerly and in a
+    graph replay); on a CPU tensor plain indexing with an ``index_add_``
+    backward (:mod:`raytracer_tpu_torch.ops.gather_cuda`)."""
+    return GA.table_gather(table, idx)
 
 
 def transform_row(scene: T.Scene, gid):
@@ -586,7 +603,7 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
     t_s = select_col(masked, slot)                          # [R,S]
     # per-column shadow flags are static rows (triangle gids map through
     # their source row), broadcast over rays and samples
-    flag_cols = scene.shadow[transform_row(scene, col_gid_t)]
+    flag_cols = table_gather(scene.shadow, transform_row(scene, col_gid_t))
     flag_s = flag_cols[slot]
 
     if st.counts[5] - st.n_csg_tris > 0:
@@ -607,7 +624,8 @@ def shadow_blocked(scene: T.Scene, over, pos, live=None):
         if st.mesh_all_shadow:
             flag_m = torch.ones_like(better)
         else:
-            flag_m = scene.shadow[transform_row(scene, g_m.reshape(r, s))]
+            flag_m = table_gather(scene.shadow,
+                                  transform_row(scene, g_m.reshape(r, s)))
         flag_s = torch.where(better, flag_m, flag_s)
         t_s = torch.minimum(t_m, t_s)
 

@@ -16,7 +16,7 @@ import torch
 
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.intersect import (
-    mat3_apply, select_col, transform_row,
+    mat3_apply, select_col, table_gather, transform_row,
 )
 
 PI = 3.14159265358979323846
@@ -38,18 +38,18 @@ def pattern_color(scene: T.Scene, gid, world_point, tgid=None, pid=None,
         if tgid is None:
             tgid = transform_row(scene, gid)
         if pid is None:
-            pid = scene.pattern_id[tgid]
+            pid = table_gather(scene.pattern_id, tgid)
         if inv is None:
-            inv = scene.inv_tf[tgid]                       # [R,4,4]
+            inv = table_gather(scene.inv_tf, tgid)         # [R,4,4]
     pid = pid.clamp_min(0).long()
     obj_p = mat3_apply(inv[:, :3, :3], world_point) + inv[:, :3, 3]
-    pinv = scene.pat_inv[pid]
+    pinv = table_gather(scene.pat_inv, pid)
     p = mat3_apply(pinv[:, :3, :3], obj_p) + pinv[:, :3, 3]
 
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    a = scene.pat_a[pid]
-    b = scene.pat_b[pid]
-    kind = scene.pat_kind[pid]
+    a = table_gather(scene.pat_a, pid)
+    b = table_gather(scene.pat_b, pid)
+    kind = table_gather(scene.pat_kind, pid)
 
     # striped.rs:28-34
     striped = torch.where((torch.remainder(torch.floor(x), 2.0) == 0.0)[:, None], a, b)
@@ -67,8 +67,9 @@ def pattern_color(scene: T.Scene, gid, world_point, tgid=None, pid=None,
     xyz = p
 
     # texture_map.rs: pick the uv mapping, then the uv pattern
-    tex_u, tex_v = _uv_map(scene.pat_map[pid], p)
-    texture = _uv_pattern_at(scene, scene.pat_uv[pid, 0], tex_u, tex_v)
+    tex_u, tex_v = _uv_map(table_gather(scene.pat_map, pid), p)
+    texture = _uv_pattern_at(scene, table_gather(scene.pat_uv[:, 0], pid),
+                             tex_u, tex_v)
 
     # cube_map.rs:81-137
     cubemap = _cube_map_color(scene, pid, p)
@@ -108,10 +109,10 @@ def _uv_map(mapping, p):
 def _uv_pattern_at(scene: T.Scene, uv_id, u, v):
     """uv_pattern.rs: checker / align-check / image, batched."""
     uid = uv_id.clamp_min(0).long()
-    kind = scene.uv_kind[uid]
-    w = scene.uv_wh[uid, 0]
-    h = scene.uv_wh[uid, 1]
-    colors = scene.uv_colors[uid]                          # [R,5,3]
+    kind = table_gather(scene.uv_kind, uid)
+    w = table_gather(scene.uv_wh[:, 0], uid)
+    h = table_gather(scene.uv_wh[:, 1], uid)
+    colors = table_gather(scene.uv_colors, uid)            # [R,5,3]
 
     # UvChecker (uv_pattern.rs:44-53)
     par = torch.remainder(torch.floor(u * w) + torch.floor(v * h), 2.0) == 0.0
@@ -126,15 +127,20 @@ def _uv_pattern_at(scene: T.Scene, uv_id, u, v):
     align = torch.where(((v < 0.2) & (u > 0.8))[:, None], br, align)
 
     # UvImage (uv_pattern.rs:120-133): nearest neighbor, v flipped.
-    img_id = scene.uv_image[uid].clamp_min(0).long()
-    iw = scene.image_wh[img_id, 0].to(torch.float32)
-    ih = scene.image_wh[img_id, 1].to(torch.float32)
+    img_id = table_gather(scene.uv_image, uid).clamp_min(0).long()
+    iw = table_gather(scene.image_wh[:, 0], img_id).to(torch.float32)
+    ih = table_gather(scene.image_wh[:, 1], img_id).to(torch.float32)
     vv = 1.0 - v
     px = torch.floor(u * (iw - 1.0) + 0.5).to(torch.int64)
     py = torch.floor(vv * (ih - 1.0) + 0.5).to(torch.int64)
     px = px.clamp(0, scene.images.shape[2] - 1)
     py = py.clamp(0, scene.images.shape[1] - 1)
-    image = scene.images[img_id, py, px]
+    # the texels as a table of rows, through table_gather, so that their
+    # gradient is its reduction too (every ray of a scene without an
+    # image reads one texel)
+    _, ih_max, iw_max, _ = scene.images.shape
+    image = table_gather(scene.images.reshape(-1, 3),
+                         (img_id * ih_max + py) * iw_max + px)
 
     out = torch.where((kind == T.UV_ALIGN)[:, None], align, checker)
     out = torch.where((kind == T.UV_IMAGE)[:, None], image, out)
@@ -177,5 +183,5 @@ def _cube_map_color(scene: T.Scene, pid, p):
     ], -1)
     u = select_col(u_faces, face)
     v = select_col(v_faces, face)
-    uv_id = select_col(scene.pat_uv[pid], face)
+    uv_id = select_col(table_gather(scene.pat_uv, pid), face)
     return _uv_pattern_at(scene, uv_id, u, v)

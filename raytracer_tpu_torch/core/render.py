@@ -240,12 +240,21 @@ def shade_level(scene: T.Scene, o, d, weight, jitter=None):
 
     point = o + t[:, None] * d
     eyev = -d
-    # one tri->source row lookup shared by every per-primitive attribute
+    # one tri->source row lookup shared by every per-primitive attribute,
+    # and one table_gather of the per-source tables' concatenation
     tgid = I.transform_row(scene, gid)
-    inv_rows = scene.inv_tf[tgid]
-    nmat_rows = scene.normal_mat[tgid]
-    mat_idx = scene.mat_id[tgid].long()
-    pat_id = scene.pattern_id[tgid]
+    g_c = scene.inv_tf.shape[0]
+    src_tab = torch.cat([
+        scene.inv_tf.reshape(g_c, 16),
+        scene.normal_mat.reshape(g_c, 9),
+        scene.mat_id.to(torch.float32)[:, None],
+        scene.pattern_id.to(torch.float32)[:, None],
+    ], 1)                                            # [Gc, 27]
+    rows = I.table_gather(src_tab, tgid)             # [R, 27]
+    inv_rows = rows[:, :16].reshape(-1, 4, 4)
+    nmat_rows = rows[:, 16:25].reshape(-1, 3, 3)
+    mat_idx = rows[:, 25].long()
+    pat_id = rows[:, 26].to(scene.pattern_id.dtype)
 
     normalv = SH.normal_at(
         scene, gid, point, u, v, tgid=tgid, inv=inv_rows, nmat=nmat_rows
@@ -258,7 +267,7 @@ def shade_level(scene: T.Scene, o, d, weight, jitter=None):
     # gates reject it (their surface term is masked to 0 below anyway)
     over_sh, _ = park_rays(over, d, has)
 
-    mat_rows = scene.mat[mat_idx]
+    mat_rows = I.table_gather(scene.mat, mat_idx)
     pat = pattern_color(scene, gid, over, pid=pat_id, inv=inv_rows)
     has_pat = pat_id >= 0
     base_color = torch.where(has_pat[:, None], pat, mat_rows[:, T.MAT_COLOR])
@@ -339,6 +348,14 @@ def _packed_width(r: int, n_live: int) -> int:
     return r
 
 
+def rows_of(x, idx):
+    """``x[idx]`` for distinct row indices ``idx`` (a permutation, or a
+    part of one): ``index_select``, whose backward adds each gradient row
+    once into zeros (``index_add_``), where ``x[idx]``'s would sort the
+    indices and walk them (``index_put_`` with accumulate)."""
+    return x.index_select(0, idx)
+
+
 def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
                         thread_perm=False, width):
     """:func:`shade_level` with the live rays (any weight > 0) moved to the
@@ -361,7 +378,8 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
     sel = order[:width]
     if jitter is not None:
         jitter = tuple(j[:width] for j in jitter)
-    colored, refl, refr = shade_level(scene, o[sel], d[sel], w[sel],
+    colored, refl, refr = shade_level(scene, rows_of(o, sel),
+                                      rows_of(d, sel), rows_of(w, sel),
                                       jitter)
     out = [colored]
     for spawn in (refl, refr):
@@ -375,7 +393,7 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
                zip(out, fills)]
     if not thread_perm:
         inv_order = torch.argsort(order)
-        out = [x[inv_order] for x in out]
+        out = [rows_of(x, inv_order) for x in out]
     res = out[0], tuple(out[1:4]), tuple(out[4:7])
     return res + (order,) if thread_perm else res
 
@@ -480,7 +498,8 @@ def accumulate(img, perm, colored, order):
     the level's ``order``. Returns (img, perm)."""
     if order is None:
         return img + colored.reshape(-1, img.shape[0], 3).sum(0), perm
-    return img[order] + colored, order if perm is None else perm[order]
+    return (rows_of(img, order) + colored,
+            order if perm is None else perm[order])
 
 
 def spawns(static: T.SceneStatic) -> bool:
@@ -570,7 +589,7 @@ def dead_step(static: T.SceneStatic, level: int, limit: int, rows: int,
 def finish_step(img, perm):
     """The tile's colours in its rays' order: the composed permutation of
     the packed levels undone once."""
-    return img if perm is None else img[torch.argsort(perm)]
+    return img if perm is None else rows_of(img, torch.argsort(perm))
 
 
 def quantize_u8(c):

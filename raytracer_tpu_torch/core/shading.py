@@ -13,7 +13,8 @@ import torch
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.intersect import (
-    candidate_meta, dot3, mat3_apply, select_col, transform_row,
+    candidate_meta, dot3, mat3_apply, select_col, table_gather,
+    transform_row,
 )
 
 
@@ -43,7 +44,7 @@ def normal_at(scene: T.Scene, gid, world_point, u, v, tgid=None, inv=None,
     if tgid is None:
         tgid = transform_row(scene, gid)
     if inv is None:
-        inv = scene.inv_tf[tgid]
+        inv = table_gather(scene.inv_tf, tgid)
     lp = mat3_apply(inv[:, :3, :3], world_point) + inv[:, :3, 3]
     lx, ly, lz = lp[:, 0], lp[:, 1], lp[:, 2]
 
@@ -100,7 +101,7 @@ def normal_at(scene: T.Scene, gid, world_point, u, v, tgid=None, inv=None,
 
     # non-triangle: local normal -> world via normal matrix + normalize
     if nmat is None:
-        nmat = scene.normal_mat[tgid]
+        nmat = table_gather(scene.normal_mat, tgid)
     world_n = normalize(mat3_apply(nmat, local))
 
     # triangles: stored world-space normals
@@ -214,16 +215,18 @@ def refraction_indices_fast(scene: T.Scene, ts, gids, hit_slot):
     mat_refr = scene.mat[:, T.MAT_REFRACTIVE]              # [M]
     n_dyn = tab["n_dyn"]
     static_rows = transform_row(scene, tab["static_obj"])
-    refr_static = mat_refr[scene.mat_id[static_rows].long()][None, :].expand(
-        r, c - n_dyn)
+    refr_static = table_gather(
+        mat_refr, table_gather(scene.mat_id, static_rows))[None, :].expand(
+            r, c - n_dyn)
     if n_dyn:
         uni = scene.static.mesh_uniform_refr
         if uni is not None:
             dyn_cols = [torch.full((r, 1), float(uni), device=dev)] * n_dyn
         else:
             dyn_cols = [
-                mat_refr[scene.mat_id[
-                    transform_row(scene, gids[:, j].long())].long()][:, None]
+                table_gather(mat_refr, table_gather(
+                    scene.mat_id, transform_row(scene, gids[:, j].long())
+                ))[:, None]
                 for j in range(c - n_dyn, c)
             ]
         refr = torch.cat([refr_static] + dyn_cols, -1)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.constants import EPSILON
+from raytracer_tpu_torch.ops import gather_cuda as TG
 
 RT = 256           # rays per subtile = threads per CTA (one 16x16 block)
 CHUNK = 1024       # triangles per chunk (the unit of the gate)
@@ -291,29 +292,33 @@ _wrapper.launches_by_mode = {"nearest": 0, "any_hit": 0, "behind": 0}
 
 
 def reset_launches():
+    """Zeroes the launch counters of K1, K1b and table_gather."""
     _wrapper.launches = 0
     live_supergroups.launches = 0
     for k in _wrapper.launches_by_mode:
         _wrapper.launches_by_mode[k] = 0
+    TG.reset_launches()
 
 
 def launch_counts() -> dict:
-    """The launch counters: K1's ("k1" and by mode) and K1b's
-    ("prepass")."""
+    """The launch counters: K1's ("k1" and by mode), K1b's ("prepass")
+    and table_gather's, one a kernel ("gather" and "gather_*":
+    ops/gather_cuda.launch_counts)."""
     return {"k1": _wrapper.launches, **_wrapper.launches_by_mode,
-            "prepass": live_supergroups.launches}
+            "prepass": live_supergroups.launches, **TG.launch_counts()}
 
 
 def add_launches(delta: dict, sign: int = 1):
     """Adds ``sign`` times ``delta`` (a difference of two
-    :func:`launch_counts`) to the counters. A CUDA graph records its K1
-    and K1b launches when it is captured, which launches nothing
+    :func:`launch_counts`) to the counters. A CUDA graph records its
+    kernels' launches when it is captured, which launches nothing
     (core/tile_program.py takes them back off) and launches them on every
     replay (it adds them again)."""
     _wrapper.launches += sign * delta["k1"]
     for k in _wrapper.launches_by_mode:
         _wrapper.launches_by_mode[k] += sign * delta[k]
     live_supergroups.launches += sign * delta["prepass"]
+    TG.add_launches(delta, sign)
 
 
 def _cross(a, b):

@@ -122,7 +122,8 @@ def _grad_microbatched(params, recombine, origins, directions, target,
         # rays that require grad share what made them across microbatches
         loss.backward(retain_graph=ray_grad and i < n_micro - 1)
         loss_sum = loss_sum + loss.detach()
-    return loss_sum / n_micro, _grads(leaves, 1.0 / n_micro)
+    scale = 1.0 / n_micro
+    return loss_sum * scale, _grads(leaves, scale)
 
 
 def render_loss_and_grad(params, recombine, origins, directions, target,
@@ -205,7 +206,7 @@ def _graphed_loss_and_grad(params, recombine, origins, directions, target,
     reached = prog.settle()
     scale = 1.0 if n_micro == 1 else 1.0 / n_micro
     out = {k: total[k] * scale if k in reached else None for k in params}
-    return (loss.clone() if n_micro == 1 else loss_sum / n_micro), out
+    return (loss.clone() if n_micro == 1 else loss_sum * scale), out
 
 
 def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,

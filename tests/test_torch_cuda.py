@@ -1,7 +1,8 @@
 """raytracer_tpu_torch on the card: the CUDA mesh kernel against its plain
 version, a frame rendered on cuda against the same frame on the CPU, and
 the mesh query's gradient and a render loss's gradients on cuda against
-the CPU.
+the CPU; table_gather's kernels against their plain versions, captured in
+a graph, and in a flagship train step graphed against eager.
 
 Every test here carries the ``cuda`` marker and skips itself when there is
 no CUDA device. The file imports neither JAX nor the JAX package, so on a
@@ -402,9 +403,12 @@ def test_graphed_train_step_equals_eager(name, remat):
     one backward graph launch, its levels skipped or packed by conditional
     nodes) against graphs=False, two microbatches: the losses bit-equal,
     the updated tables within rtol 1e-3, atol 1e-5 (``index_add_`` adds in
-    atomic order on the card), the same K1 launches per step (the graphed
-    side counted from the level logs, after the first step, whose warm-up
-    runs every branch once); a second step, on a new scene object of new
+    atomic order on the card), the same K1, K1b and table_gather forward
+    launches per step (the graphed side counted from the level logs, after
+    the first step, whose warm-up runs every branch once; table_gather's
+    backward launches are not compared: a level's captured vjp runs the
+    backward of every lookup of the level, eager autograd only of those
+    its loss reaches); a second step, on a new scene object of new
     parameter tensors (the same values) and the same frozen tables, as a
     train step makes, captures nothing new."""
     _require_cuda()
@@ -438,6 +442,10 @@ def test_graphed_train_step_equals_eager(name, remat):
                        MC.launch_counts())
     (lg, sg, kg), (le, se, ke) = out[True], out[False]
     assert torch.equal(lg, le)
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+    for key in GA.BACKWARD_KERNELS:
+        kg.pop(key)
+        ke.pop(key)
     assert kg == ke
     pg, pe = partition_scene(sg)[0], partition_scene(se)[0]
     for k in pe:
@@ -719,3 +727,313 @@ def test_graphed_frame_is_one_launch_per_tile(name, monkeypatch):
     if name == "glass_mesh4":
         assert k_eager["k1"] > 0
         assert any(w is not None for _, _, w in prog.levels)
+
+
+GATHER_DTYPES = [torch.float32, torch.int32, torch.int64, torch.bool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GATHER_DTYPES, ids=str)
+@pytest.mark.parametrize("rest", [(), (3,), (27,), (5, 3)],
+                         ids=["G", "Gx3", "Gx27", "Gx5x3"])
+def test_table_gather_kernel_forward_equals_plain(rest, dtype):
+    """table_gather's forward kernel against its plain version, bit for
+    bit, for every dtype the call sites use, rows of 1 to 108 bytes (bytes,
+    4-, 8- and 16-byte words), int32 and int64 indices of shapes [R] and
+    [R, S], out-of-range indices clamped, and a table that is a strided
+    view."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for g in (1, 5, 300):
+        full = torch.randint(-50, 50, (g, *rest), device="cuda",
+                             generator=gen)
+        table = full > 0 if dtype == torch.bool else (
+            torch.randn((g, *rest), device="cuda", generator=gen)
+            if dtype == torch.float32 else full.to(dtype))
+        for shape in ((131_072,), (4096, 5)):
+            for idx_dtype in (torch.int32, torch.int64):
+                idx = torch.randint(-2, g + 2, shape, device="cuda",
+                                    generator=gen).to(idx_dtype)
+                before = GA.LAUNCHES["gather"]
+                got = GA.gather_forward(table, idx)
+                assert GA.LAUNCHES["gather"] == before + 1
+                want = GA.gather_forward_plain(table, idx.long())
+                assert got.dtype == dtype and got.shape == want.shape
+                assert torch.equal(got, want)
+        if rest == (3,):
+            view = table.t().contiguous().t()         # strided rows
+            assert torch.equal(GA.gather_forward(view, idx),
+                               GA.gather_forward_plain(view, idx.long()))
+
+
+def _backward_kernels(GA, n, g, k):
+    """The backward kernels one call launches for n indices into a [g, k]
+    table, by the route its size picks."""
+    lib = GA._library()
+    if lib.table_gather_fixed(n, g, k):
+        return {"gather_scale": 1, "gather_add": 1, "gather_finish": 1}
+    return {"gather_grad": 1,
+            "gather_reduce": int(lib.table_gather_workspace(n, g, k) > 0)}
+
+
+def _check_backward(GA, grad, idx, g):
+    """table_gather's backward kernel on (grad, idx) against the f64 sum
+    by index, to rtol 1e-5 of the sum of the terms' magnitudes, as the
+    plain version (``index_add_``) is; two calls (int64 and int32
+    indices) equal bit for bit; each launch counted on its kernel; rows
+    no index reaches exactly 0."""
+    rest = grad.shape[idx.dim():]
+    want = torch.zeros((g, *rest), dtype=torch.float64, device="cuda")
+    want.index_add_(0, idx, grad.double())
+    scale = torch.zeros_like(want).index_add_(0, idx, grad.double().abs())
+    before = GA.launch_counts()
+    got = GA.gather_backward(grad, idx, g)
+    again = GA.gather_backward(grad, idx.int(), g)
+    launched = {k: v - before[k] for k, v in GA.launch_counts().items()
+                if v != before[k]}
+    per_call = _backward_kernels(GA, idx.numel(), g, grad[0].numel())
+    assert launched == {k: 2 * v for k, v in per_call.items() if v}
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    plain = GA.gather_backward_plain(grad, idx, g)
+    for x in (got, plain):
+        assert bool(((x.double() - want).abs() <= 1e-5 * scale).all())
+    unread = torch.ones(g, dtype=torch.bool, device="cuda")
+    unread[idx] = False
+    assert bool((got[unread] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rest", [(), (3,), (10,), (27,), (5, 3), (700,)],
+                         ids=["G", "Gx3", "Gx10", "Gx27", "Gx5x3", "Gx700"])
+@pytest.mark.parametrize("g", [1, 5, 33, 300, 1025])
+def test_table_gather_kernel_backward(g, rest):
+    """table_gather's backward kernel (_check_backward) on train-shaped
+    inputs: most rays on a few rows. The cases cross both routes: the
+    tile route up to TILES_MAX tiles of the table, the fixed-point route
+    beyond (G 1025 at most K, every G > 5 at K 700)."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(g)
+    n = 131_072 if rest != (700,) else 8192
+    hot = torch.randint(0, min(g, 5), (n,), device="cuda", generator=gen)
+    spread = torch.randint(0, g, (n,), device="cuda", generator=gen)
+    idx = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.9,
+                      hot, spread)
+    grad = torch.randn((n, *rest), device="cuda", generator=gen)
+    _check_backward(GA, grad, idx, g)
+
+
+@pytest.mark.cuda
+def test_table_gather_kernel_backward_large_table():
+    """The backward on an image's texels: a [G, 3] table of a 2048 x 2048
+    image and one row more (4,194,305 rows; grid.y's 65,535 tiles of 64
+    rows at K 3 would hold 4,194,240), 131,072 rays on texels spread over
+    the image, a tenth of them on five hot texels (_check_backward)."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n, g = 131_072, 2048 * 2048 + 1
+    hot = torch.randint(0, 5, (n,), device="cuda", generator=gen)
+    spread = torch.randint(0, g, (n,), device="cuda", generator=gen)
+    idx = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.1,
+                      hot, spread)
+    grad = torch.randn((n, 3), device="cuda", generator=gen)
+    assert GA._library().table_gather_fixed(n, g, 3) == 1
+    _check_backward(GA, grad, idx, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [5, 5000], ids=["tile", "fixed"])
+def test_table_gather_kernel_backward_non_finite(g):
+    """Infinite and NaN terms on both routes, as a float sum takes them:
+    a row column with +inf terms only is +inf, with -inf only -inf, with
+    both NaN, with a NaN NaN; every other column the sum of its terms."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n, inf = 65_536, float("inf")
+    idx = torch.randint(0, g, (n,), device="cuda", generator=gen)
+    idx[:8] = torch.tensor([0, 0, 1, 1, 1, 2, 2, 3], device="cuda")
+    grad = torch.randn((n, 3), device="cuda", generator=gen)
+    grad[:8, 0] = torch.tensor([inf, inf, -inf, 1.0, -inf, inf, -inf,
+                                float("nan")], device="cuda")
+    got = GA.gather_backward(grad, idx, g)
+    again = GA.gather_backward(grad, idx, g)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    col = got[:4, 0].tolist()
+    assert col[0] == inf and col[1] == -inf
+    assert col[2] != col[2] and col[3] != col[3]       # NaN
+    want = GA.gather_backward_plain(grad.double(), idx, g)
+    finite = torch.ones_like(got, dtype=torch.bool)
+    finite[:4, 0] = False
+    torch.testing.assert_close(got[finite], want[finite].float(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_table_gather_capture_and_replay_equal_eager():
+    """table_gather forward and backward (through autograd) captured in
+    one torch.cuda.CUDAGraph and replayed on new indices and gradients
+    copied into its static inputs: output and table gradient equal to the
+    eager calls bit for bit."""
+    _require_cuda()
+    from raytracer_tpu_torch.core.intersect import table_gather
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = torch.randn((5, 27), device="cuda", generator=gen,
+                        requires_grad=True)
+    idx = torch.randint(0, 5, (65_536,), device="cuda", generator=gen)
+    w = torch.randn((65_536, 27), device="cuda", generator=gen)
+
+    def step():
+        out = table_gather(table, idx)
+        (g,) = torch.autograd.grad((out * w).sum(), table)
+        return out, g
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                         # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out, static_g = step()
+    for seed in (6, 7):
+        gen.manual_seed(seed)
+        idx.copy_(torch.randint(0, 5, idx.shape, device="cuda",
+                                generator=gen))
+        w.copy_(torch.randn(w.shape, device="cuda", generator=gen))
+        graph.replay()
+        out, g = step()
+        assert torch.equal(static_out, out)
+        assert torch.equal(static_g, g)
+
+
+@pytest.mark.cuda
+def test_flagship_train_graphed_step_bit_equal_eager():
+    """A flagship_train step (train_step's gradient, n_micro=4, remat off)
+    through the train program against graphs=False on the card: the loss
+    and every gradient table equal bit for bit, table_gather's forward
+    and backward kernels launched, the forward as often on both sides (the
+    graphed side counted from the level logs, after the step that builds
+    it; its captured vjps run the backward of every lookup of a level,
+    eager autograd only of those the loss reaches), and no event of
+    PyTorch's indexing backward in a graphed step's profile."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.core import train_program as TPG
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss_and_grad)
+
+    items, cam = scenes.flagship(64, 48)
+    sc = build_scene(items, device="cuda")
+    o, d = ray_grid(cam, device="cuda")
+    target = torch.zeros_like(o)
+    params, recombine = partition_scene(sc)
+    TPG.drop_programs()
+    out = {}
+    for graphs in (True, True, False):          # the first graphed builds
+        MC.reset_launches()
+        out[graphs] = (*render_loss_and_grad(
+            params, recombine, o, d, target, n_micro=4, remat=False,
+            graphs=graphs), MC.launch_counts())
+    (lg, gg, kg), (le, ge, ke) = out[True], out[False]
+    assert torch.equal(lg, le)
+    for k in ge:
+        assert torch.equal(gg[k], ge[k]), k
+    assert kg["gather"] == ke["gather"] > 0
+    assert kg["gather_grad"] >= ke["gather_grad"] > 0
+    assert float(ge["mat"].abs().sum()) > 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render_loss_and_grad(params, recombine, o, d, target, n_micro=4,
+                             remat=False)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not any("indexing_backward" in k for k in names)
+    assert any("table_gather_grad_kernel" in k for k in names)
+
+
+@pytest.mark.cuda
+def test_textured_train_step_2048_image():
+    """A train gradient of a scene whose floor carries a 2048 x 2048
+    image texture (4,194,304 texels, a trained table): graphed and
+    eager equal bit for bit, the texels' gradient through
+    table_gather's fixed-point route (no G is too large for the grid),
+    finite and on many texels, its sum and the loss within rtol 1e-3 of
+    the CPU's."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.core import train_program as TPG
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss_and_grad)
+    from raytracer_tpu_torch.scene import specs as S
+
+    image = np.random.default_rng(29).random((2048, 2048, 3), np.float32)
+    items, cam = scenes.flagship(64, 48)
+    items[1] = S.Plane(material=S.Material(specular=0.0, pattern=S.Pattern(
+        "texture_map", mapping="planar", transform=np.diag(
+            [4.0, 4.0, 4.0, 1.0]).astype(np.float32),
+        uv_pattern=S.UvPatternSpec("image", image=image))))
+    TPG.drop_programs()
+    out = {}
+    for dev, graphs in (("cuda", True), ("cuda", True), ("cuda", False),
+                        ("cpu", False)):
+        sc = build_scene(items, device=dev)
+        assert sc.images.shape == (1, 2048, 2048, 3)
+        o, d = ray_grid(cam, device=dev)
+        params, recombine = partition_scene(sc)
+        MC.reset_launches()
+        out[(dev, graphs)] = (*render_loss_and_grad(
+            params, recombine, o, d, torch.zeros_like(o), n_micro=2,
+            remat=False, graphs=graphs), GA.launch_counts())
+    (lg, gg, kg), (le, ge, ke) = out[("cuda", True)], out[("cuda", False)]
+    lc, gc, _ = out[("cpu", False)]
+    assert torch.equal(lg, le)
+    for k in ge:
+        assert torch.equal(gg[k], ge[k]), k
+    assert ke["gather_scale"] == ke["gather_add"] == ke["gather_finish"] > 0
+    img = ge["images"]
+    assert bool(torch.isfinite(img).all())
+    assert int((img != 0).any(-1).sum()) > 100
+    torch.testing.assert_close(le.cpu(), lc, rtol=1e-3, atol=0)
+    torch.testing.assert_close(img.sum().cpu(), gc["images"].sum(),
+                               rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_graphed_microbatched_loss_is_sum_times_reciprocal():
+    """At n_micro=3 a graphed step's loss is the microbatch losses' sum
+    times fl(1/3), bit for bit, as the JAX package rounds it (ROADMAP
+    F7). On the card PyTorch divides a tensor by a scalar as a product
+    with its reciprocal, so x / 3 rounds the same there; the CPU test
+    (test_torch_train_control.py) holds a case where they differ."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.parallel import (
+        partition_scene, render_loss, render_loss_and_grad)
+
+    items, cam = scenes.flagship(48, 16)
+    sc = build_scene(items, device="cuda")
+    o, d = ray_grid(cam, device="cuda")
+    params, recombine = partition_scene(sc)
+    m = o.shape[0] // 3
+    for seed in range(4):
+        target = torch.as_tensor(np.random.default_rng(seed).uniform(
+            0, 1, (o.shape[0], 3)), dtype=torch.float32, device="cuda")
+        loss, _ = render_loss_and_grad(params, recombine, o, d, target,
+                                       n_micro=3, remat=False)
+        total = torch.zeros((), device="cuda")
+        with torch.no_grad():
+            for i in range(3):
+                sl = slice(i * m, (i + 1) * m)
+                total = total + render_loss(params, recombine, o[sl], d[sl],
+                                            target[sl], remat=False)
+        assert torch.equal(loss, total * (1.0 / 3))

@@ -14,6 +14,8 @@ nodes, the dead level's among them, and reads them on the host:
   from level 1, the second not): loss and every gradient equal to the
   eager step's bit for bit (``.tobytes()``, so a signed zero shows), the
   tables left None the same as eager's, for remat off and on;
+* at three microbatches, the loss of either path is the microbatch
+  losses' sum times fl(1/3) bit for bit, as the JAX package rounds it;
 * the same scene's ``render_loss_and_grad`` against the JAX package's
   (its ``lax.scan`` over the microbatches, run op by op under
   ``jax.disable_jit``), rtol 1e-4.
@@ -174,6 +176,33 @@ def test_microbatches_on_different_paths_match_jax():
     assert set(grads) == set(jp)
     assert_grads_match(grads, j_grads)
     assert float(np.abs(np.asarray(j_grads["mat"])).sum()) > 0
+
+
+@pytest.mark.parametrize("graphs", [False, True], ids=["eager", "graphed"])
+def test_microbatched_loss_is_sum_times_reciprocal(graphs):
+    """At n_micro=3 the returned loss is the microbatch losses' sum times
+    fl(1/3), bit for bit, as the JAX package's ``loss_sum * (1.0 /
+    n_micro)`` (ROADMAP F7); the target is drawn so that the sum divided
+    by 3 rounds to another float."""
+    cam = Camera(48, 16, math.pi / 3).with_transform(
+        tf.view_transform((0.0, 0.0, -5.0), (0.0, 1.3, 0.0),
+                          (0.0, 1.0, 0.0)))
+    o, d = ray_grid(cam, device="cpu")
+    target = torch.as_tensor(np.random.default_rng(3).uniform(
+        0, 1, (o.shape[0], 3)), dtype=torch.float32)
+    params, recombine = partition_scene(paths_scene())
+    loss, _ = render_loss_and_grad(params, recombine, o, d, target,
+                                   n_micro=3, remat=False, graphs=graphs)
+    m = o.shape[0] // 3
+    total = torch.zeros(())
+    with torch.no_grad():
+        for i in range(3):
+            sl = slice(i * m, (i + 1) * m)
+            total = total + render_loss(params, recombine, o[sl], d[sl],
+                                        target[sl], remat=False)
+    want = total * (1.0 / 3)
+    assert bits(want) != bits(total / 3)
+    assert bits(loss) == bits(want)
 
 
 AREA = S.AreaLight(corner=(-3.0, 6.0, -4.0), uvec=(2.0, 0.0, 0.0), usteps=2,
