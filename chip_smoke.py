@@ -25,7 +25,10 @@ Phases (any failure exits non-zero before the final line):
    one must be). t to rtol 1e-5, triangle index on >= 99.9% of hits
    (100% for the tie), hit existence and any-hit verdicts exact. The
    pre-pass kernel is held exactly against its torch version on every case
-   (ids, counts and entries; the largest difference is reported).
+   (ids, counts and entries; the largest difference is reported), and on
+   boxes alone (mesh_cases.prepass_case: a subtile that misses
+   everything, tied entries, origins inside a box) at 1, 7, 130, 300 and
+   6,954 supergroups, capped and uncapped.
 3. oracle: the default world's ray (0,0,-5)->+z shades to
    (0.38066, 0.47583, 0.2855) within 1e-4.
 4. device vs host: glass_mesh(instances=4) at 96x54 rendered on cuda and on
@@ -108,14 +111,16 @@ Phases (any failure exits non-zero before the final line):
    side's launches join the kernels line. Then, in a process of its own
    (``--train-profiles``: in the main process, after phases 2 to 6, the
    profiler reports K1 kernels the counters do not hold), one graphed
-   glass_train and dragons_pose gradient and one eager dragons_pose
-   gradient under torch.profiler: device busy, idle share, the host's
-   cudaGraphLaunch and cudaLaunchKernel calls, and K1's and K1b's device
-   and table_gather's device events, each of which must equal its
-   kernel's counter's delta (flagship_train launches no K1), and no
-   indexing_backward_kernel event in the glass gradient. Then each
+   glass_train, flagship_train and dragons_pose gradient and one eager
+   dragons_pose gradient under torch.profiler: device busy, idle share,
+   the host's cudaGraphLaunch and cudaLaunchKernel calls, and K1's and
+   K1b's device and table_gather's device events, each of which must
+   equal its kernel's counter's delta (flagship_train launches no K1),
+   each hand-written kernel's device time and events (the step-0
+   totals of the kernels line), and no indexing_backward_kernel event in
+   the glass and flagship gradients. Then each
    cell's s/step (7b, 7d) and device busy (7c, 7d). table_gather's
-   forward, grad and reduce launches of phase 7 (7d's graphed side
+   forward and grad launches of phase 7 (7d's graphed side
    included) must not be 0. (7e, after the counts are read)
    table_gather replayed with a seeded gradient on glass_train's and
    flagship_train's largest differentiated calls of a table of more
@@ -127,7 +132,10 @@ Phases (any failure exits non-zero before the final line):
    twice bit-equal and within rtol 1e-5 of the f64 sum by index (of the
    sum of the terms' magnitudes), the kernels', the plain versions' and
    the library's (table[idx] and its index_put_ backward; index_add_
-   beside it) CUDA-event times, the bound in bytes.
+   beside it) CUDA-event times over a loop of calls (``cuda_ms``) and,
+   under names ending in ``graph_ms``, over 20 calls captured in one CUDA
+   graph and replayed (the device's pace, the host out of the figure),
+   the bound in bytes.
 8. packed levels, resumable and multi-process rendering, the examples
    (launch counters zeroed again just before it, and read just after 8d):
    (8a) one dragons_equiv tile and one glass_mesh tile, each packed
@@ -380,6 +388,32 @@ def check_prepass(mc, call, label):
     return max(ent_err, *map(float, differ.values()))
 
 
+def prepass_cases(mc, dev):
+    """K1b's kernel against its torch version on boxes alone
+    (mesh_cases.prepass_case: a subtile that misses everything, tied
+    entries, origins inside a box), capped and uncapped, at the test
+    cases' supergroup counts and at the most the kernel takes; returns
+    check_prepass's largest number."""
+    import torch
+
+    from raytracer_tpu_torch import mesh_cases
+
+    err = 0.0
+    for ns in (*mesh_cases.PREPASS_SUPERS, mc.PREPASS_SUPER_MAX):
+        c = mesh_cases.prepass_case(ns)
+        o, d, bb, cap = (torch.as_tensor(c[k], device=dev)
+                         for k in ("o", "d", "bb_super", "t_init"))
+        for t_cap in (None, cap):
+            call = dict(o=o, d=d, bb=(None, bb), t_init=t_cap,
+                        reverse=False)
+            err = max(err, check_prepass(
+                mc, call, f"pre-pass boxes n_super={ns}"))
+    log(f"  pre-pass on boxes alone, n_super "
+        f"{(*mesh_cases.PREPASS_SUPERS, mc.PREPASS_SUPER_MAX)}, capped and "
+        f"uncapped: equal to the torch version")
+    return err
+
+
 def check_kernel_vs_plain(mc, call, label, idx_min=0.999):
     """K1 against its plain version on one call's inputs (and the pre-pass
     kernel against its torch version); returns (the max |t_kernel -
@@ -610,7 +644,51 @@ def profile_run(fn, s_unprofiled, count_kernels=()):
             "cuLaunchKernel", "cuLaunchKernelEx", "cuGraphLaunch")),
         kernel_events={s: sum(e.count for e in kern if s in e.key)
                        for s in count_kernels},
+        kernel_device_ms={s: sum(e.self_device_time_total for e in kern
+                                 if s in e.key) / 1e3
+                          for s in count_kernels},
     )
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """``fn``'s time per call with the host out of the figure: ``calls``
+    calls captured in one CUDA graph, the graph replayed ``reps`` times
+    between CUDA events (ms per call). The launch counters that the
+    capture moves are set back: a capture launches nothing, and the
+    replays here are no main path's."""
+    import torch
+
+    from raytracer_tpu_torch.ops import mesh_cuda as MC
+
+    fn()
+    torch.cuda.synchronize()
+    before = MC.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    MC.add_launches({k: v - before[k] for k, v in MC.launch_counts().items()},
+                    -1)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del g
+    return ms
+
+
+def device_totals(prof):
+    """A profile's device time (ms) and events of each hand-written
+    kernel (HAND_KERNELS), by name."""
+    return {name: dict(ms=prof["kernel_device_ms"][name],
+                       launches=prof["kernel_events"][name])
+            for name in HAND_KERNELS}
 
 
 def k1_numbers(mc, call, reps):
@@ -643,6 +721,11 @@ def k1_numbers(mc, call, reps):
     res["prepass_torch_ms"] = cuda_ms(
         lambda: mc.live_supergroups_plain(o, inv, bb_super, call["t_init"]),
         reps)
+    # the same calls replayed from one CUDA graph: the device's pace
+    res["graph_ms"] = graph_ms(lambda: mc.mesh_nearest(*args, **kw))
+    res["kernel_graph_ms"] = graph_ms(walk)
+    res["prepass_graph_ms"] = graph_ms(
+        lambda: mc.live_supergroups(o, inv, bb_super, call["t_init"]))
     res["prepass_torch_share"] = res["prepass_torch_ms"] / (
         res["prepass_torch_ms"] + res["kernel_ms"])
     n_sub = r // mc.RT
@@ -750,6 +833,14 @@ def gather_numbers(ga, table, idx, reps=20):
             (idx,), grad, accumulate=True), reps),
         index_add_ms=cuda_ms(lambda: zeros2.zero_().index_add_(
             0, flat, grad.reshape(n, k)), reps),
+        # the same calls replayed from one CUDA graph: the device's pace
+        fwd_graph_ms=graph_ms(lambda: ga.gather_forward(table, idx)),
+        bwd_graph_ms=graph_ms(lambda: ga.gather_backward(grad, idx, g)),
+        plain_fwd_graph_ms=graph_ms(
+            lambda: ga.gather_forward_plain(table, idx)),
+        library_fwd_graph_ms=graph_ms(lambda: leaf[idx]),
+        index_add_graph_ms=graph_ms(lambda: zeros2.zero_().index_add_(
+            0, flat, grad.reshape(n, k))),
         bwd_route="fixed" if ga._library().table_gather_fixed(n, g, k)
         else "tile",
         workspace_words=int(ga._library().table_gather_workspace(n, g, k)),
@@ -759,6 +850,7 @@ def gather_numbers(ga, table, idx, reps=20):
     res["ms"] = res["fwd_ms"] + res["bwd_ms"]
     res["plain_ms"] = res["plain_fwd_ms"] + res["plain_bwd_ms"]
     res["library_ms"] = res["library_fwd_ms"] + res["library_bwd_ms"]
+    res["graph_ms"] = res["fwd_graph_ms"] + res["bwd_graph_ms"]
     ib = idx.element_size()
     nbytes = 2 * n * ib + 2 * n * k * 4 + 2 * g * k * table.element_size()
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -766,6 +858,7 @@ def gather_numbers(ga, table, idx, reps=20):
     res.update(bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["graph_bound_share"] = res["bound_ms"] / res["graph_ms"]
     return res
 
 
@@ -1551,15 +1644,17 @@ def train_profiles():
     the main process, after phases 2 to 6, torch.profiler reports more K1
     and K1b kernels in a graphed glass_train gradient than the counters
     (and than a process of its own, on the same cell) hold, tiny ones
-    under a stale correlation id; here it does not. glass_train and
-    dragons_pose on their first state (7b's batches), each gradient built
-    and run once, then one graphed gradient of each and one eager
-    dragons_pose gradient under torch.profiler (profile_run): device
-    busy, idle share against the same call's time unprofiled, the host's
-    cudaGraphLaunch and cudaLaunchKernel calls, and K1's and K1b's device
-    events, which must equal the launch counters' deltas (the graphed
-    side's counted from the level logs). flagship_train launches no K1;
-    7c profiles its step. Returns the profiles by "cell:side"."""
+    under a stale correlation id; here it does not. glass_train,
+    flagship_train and dragons_pose on their first state (7b's batches),
+    each gradient built and run once, then one graphed gradient of each
+    and one eager dragons_pose gradient under torch.profiler
+    (profile_run): device busy, idle share against the same call's time
+    unprofiled, the host's cudaGraphLaunch and cudaLaunchKernel calls,
+    K1's and K1b's device events and table_gather's, which must equal the
+    launch counters' deltas (the graphed side's counted from the level
+    logs; flagship_train launches no K1), and each hand-written kernel's
+    device time and events (``device_totals``). Returns the profiles by
+    "cell:side"."""
     import torch
 
     from raytracer_tpu_torch import scenes
@@ -1570,12 +1665,16 @@ def train_profiles():
 
     dev = torch.device("cuda")
     h, v = TRAIN_SIZE
-    items, cam = scenes.glass_mesh(56, h, v)
-    params, recombine = partition_scene(build_scene(items, device=dev))
-    o, d, _ = block_rays(cam, dev)
-    cells = {"glass_train": lambda graphs: render_loss_and_grad(
-        params, recombine, o, d, torch.zeros_like(o), n_micro=4,
-        remat=False, graphs=graphs)}
+    cells = {}
+    for label, (items, cam) in (
+            ("glass_train", scenes.glass_mesh(56, h, v)),
+            ("flagship_train", scenes.flagship(h, v))):
+        params, recombine = partition_scene(build_scene(items, device=dev))
+        o, d, _ = block_rays(cam, dev)
+        cells[label] = (
+            lambda graphs, p=params, r=recombine, o=o, d=d:
+            render_loss_and_grad(p, r, o, d, torch.zeros_like(o), n_micro=4,
+                                 remat=False, graphs=graphs))
     d_items, _ = scenes.dragons_equiv()
     pose_loss, start = pose_cell(dev, build_scene(d_items, device=dev))
     cells["dragons_pose"] = (
@@ -1591,7 +1690,8 @@ def train_profiles():
             sec = time.perf_counter() - t0
             before = mc.launch_counts()
             prof = profile_run(lambda: grads(graphs), sec, count_kernels=(
-                *PROFILED_KERNELS, *GATHER_EVENTS))
+                *PROFILED_KERNELS, *GATHER_EVENTS, *HAND_KERNELS))
+            prof["device_totals"] = device_totals(prof)
             counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
             prof["counted"] = {name: sum(counted[k] for k in keys)
                                for name, keys in PROFILED_KERNELS.items()}
@@ -1606,7 +1706,7 @@ def train_profiles():
                     f"{label} {side} gradient: the profiler's kernel events "
                     f"{events} differ from the launch counters "
                     f"{prof['counted']}")
-            if label == "glass_train":
+            if label != "dragons_pose":
                 no_indexing_backward(prof, f"{label} {side} gradient")
     return out
 
@@ -1617,14 +1717,13 @@ def train_profiles():
 # (by the launch counter of each: ops/gather_cuda.LAUNCHES)
 GATHER_KERNELS = {"gather": "table_gather_kernel",
                   "gather_grad": "table_gather_grad_kernel",
-                  "gather_reduce": "table_gather_reduce_kernel",
                   "gather_scale": "table_gather_scale_kernel",
                   "gather_add": "table_gather_add_kernel",
                   "gather_finish": "table_gather_finish_kernel"}
 GATHER_EVENTS = ("indexing_backward_kernel", *GATHER_KERNELS.values())
 # the kernels the train cells' lookups launch (their tables are small: the
 # backward's tile route); the fixed-point route runs in 7e's texels
-PATH_GATHER_KERNELS = ("gather", "gather_grad", "gather_reduce")
+PATH_GATHER_KERNELS = ("gather", "gather_grad")
 
 
 def no_indexing_backward(prof, label):
@@ -2735,6 +2834,16 @@ def backward_conditionals_check(gc):
 PROFILED_KERNELS = {"mesh_walk_kernel<false>": ("nearest", "behind"),
                     "mesh_walk_kernel<true>": ("any_hit",),
                     "live_supergroups_kernel": ("prepass",)}
+# every hand-written kernel as the profiler names it (a name holding the
+# string): its device time and events are summed in the profiles of a
+# dragons_equiv frame (10c) and of one gradient of each train cell (7d's
+# process), the totals the kernels line carries
+HAND_KERNELS = ("table_gather_kernel", "table_gather_grad_kernel",
+                "table_gather_scale_kernel",
+                "table_gather_add_kernel", "table_gather_finish_kernel",
+                "live_supergroups_kernel", "mesh_walk_kernel<false>",
+                "mesh_walk_kernel<true>", "mesh_finish_kernel",
+                "set_conditionals_kernel")
 
 
 def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
@@ -2749,11 +2858,13 @@ def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
     before = mc.launch_counts()
     prof = profile_run(
         lambda: R.render(scene, cam, quantize=True, graphs=graphs),
-        s_unprofiled, count_kernels=tuple(PROFILED_KERNELS))
+        s_unprofiled, count_kernels=(*PROFILED_KERNELS, *HAND_KERNELS))
     counted = {k: v - before[k] for k, v in mc.launch_counts().items()}
     prof["counted"] = {name: sum(counted[k] for k in keys)
                        for name, keys in PROFILED_KERNELS.items()}
-    if prof["kernel_events"] != prof["counted"]:
+    prof["device_totals"] = device_totals(prof)
+    if {k: prof["kernel_events"][k] for k in PROFILED_KERNELS} \
+            != prof["counted"]:
         raise AssertionError(
             f"dragons_equiv {'graphed' if graphs else 'eager'} frame: the "
             f"profiler's kernel events {prof['kernel_events']} differ from "
@@ -3023,6 +3134,7 @@ def main(argv=None):
         for i, call in enumerate(calls):
             e, pe = check_kernel_vs_plain(MC, call, f"{label} tile call {i}")
             max_err, pre_err = max(max_err, e), max(pre_err, pe)
+    pre_err = max(pre_err, prepass_cases(MC, dev))
     log(f"  max |dt| over every case {max_err}; pre-pass kernel vs torch "
         f"{pre_err}")
     modes = {mode_of(c) for c in d_calls + g_calls}
@@ -3166,6 +3278,24 @@ def main(argv=None):
     pre_err = max(pre_err, p10["alone_pre_err"])
 
     lap(10)
+    # step 0: each hand-written kernel's device time and events in one
+    # graphed dragons_equiv frame (10c) and one graphed gradient of each
+    # train cell (7d's process)
+    totals = {"dragons_equiv_frame":
+              p10["profile"]["graphed"]["device_totals"]}
+    for key, prof in grad["graphed_vs_eager"]["profile"].items():
+        cell, side = key.split(":")
+        if side == "graphed":
+            totals[f"{cell}_gradient"] = prof["device_totals"]
+    log(f"  device time (ms) and events of each hand-written kernel: "
+        f"{json.dumps(totals)}")
+
+    def device(*names):
+        return {where: dict(
+            ms=sum(per[n]["ms"] for n in names),
+            launches=sum(per[n]["launches"] for n in names))
+            for where, per in totals.items()}
+
     main_k1 = timing["dragons:nearest"]
     kernels = [{
         "name": "mesh_nearest",
@@ -3179,6 +3309,11 @@ def main(argv=None):
         "bound_ms": main_k1["bound_ms"],
         "bound_by": main_k1["bound_by"],
         "library_ms": None,
+        "graph_ms": main_k1["graph_ms"],
+        "kernel_ms": main_k1["kernel_ms"],
+        "kernel_graph_ms": main_k1["kernel_graph_ms"],
+        "device": device("mesh_walk_kernel<false>", "mesh_walk_kernel<true>",
+                         "mesh_finish_kernel"),
         "launches_by_mode": by_mode,
         "by_call": timing,
     }, {
@@ -3193,6 +3328,8 @@ def main(argv=None):
         "bound_ms": main_k1["prepass_bound_ms"],
         "bound_by": main_k1["prepass_bound_by"],
         "library_ms": None,
+        "graph_ms": main_k1["prepass_graph_ms"],
+        "device": device("live_supergroups_kernel"),
     }, {
         "name": "set_conditionals",
         "route": "cuda",
@@ -3200,6 +3337,7 @@ def main(argv=None):
         "replaces": "raytracer_tpu/core/render.py:338",
         "launches": grad.pop("cond_launches") + p10.pop("cond_launches"),
         **p10["conditionals"],
+        "device": device("set_conditionals_kernel"),
     }, {
         "name": "table_gather",
         "route": "cuda",
@@ -3212,14 +3350,24 @@ def main(argv=None):
         **{k: grad["gather"][grad["gather"]["main"]][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms",
-            "library_fwd_ms", "library_bwd_ms", "index_add_ms", "g", "k",
+            "library_fwd_ms", "library_bwd_ms", "index_add_ms", "graph_ms",
+            "fwd_graph_ms", "bwd_graph_ms", "plain_fwd_graph_ms",
+            "library_fwd_graph_ms", "index_add_graph_ms", "g", "k",
             "indices", "bwd_route")},
+        "device": device(*(n for n in HAND_KERNELS
+                           if n.startswith("table_gather"))),
+        "device_by_kernel": {n: {w: per[n] for w, per in totals.items()}
+                             for n in HAND_KERNELS
+                             if n.startswith("table_gather")},
         "by_call": {name: {k: res[k] for k in (
             "g", "k", "indices", "bwd_route", "ms", "plain_ms", "bound_ms",
-            "library_ms", "max_abs_err")}
+            "library_ms", "max_abs_err", "fwd_ms", "bwd_ms", "fwd_graph_ms",
+            "bwd_graph_ms", "library_fwd_ms", "library_fwd_graph_ms",
+            "index_add_ms", "index_add_graph_ms")}
             for name, res in grad["gather"].items() if name != "main"},
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
+                   device_totals=totals,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
                    phase8=p8, fuzz=fuzz, compiled=p10, phase_s=phase_s,
                    seconds=time.perf_counter() - t_start)

@@ -68,17 +68,28 @@
 // 5. Empty boxes. Padding chunks carry min > max; the gate tests lo <= hi
 //    on each axis, so they are never live. Their triangles never hit
 //    (det_eps = +inf), so only the tests counted drop.
-// 6. The pre-pass (live_supergroups_kernel): one CTA per subtile, a warp
-//    reduction per supergroup of each ray's clamped entry distance, then a
-//    rank sort of the unique keys (entry bits << 32 | id) in shared memory:
-//    exactly the ids, counts and entries of the torch version's stable
-//    sort, in one launch instead of about 15. O(n_super^2 / 256) compares
-//    per CTA.
+// 6. The pre-pass (live_supergroups_kernel): exactly the ids, counts and
+//    entries of the torch version's stable sort, in one launch instead of
+//    about 15. It does little work (a 16,384-ray call on dragons_equiv's
+//    130 supergroups: 2.1M slab tests of about 20 operations, 0.6 us at
+//    the f32 rate), so latency bounds it: a CTA per subtile (64 on 132
+//    SMs) whose every warp walks every supergroup, with six global loads
+//    and a 5-step shuffle each (650 dependent shuffles a warp), then ranks
+//    the keys by an O(n_super^2 / 256) count, is one long chain. So a
+//    cluster of 2 or 4 CTAs takes a subtile when the subtiles alone would
+//    leave SMs idle (2 for a 16,384-ray call's 64 subtiles, 4 from 33
+//    subtiles down); the boxes are staged in shared memory with one load;
+//    the cluster's warps share the supergroups out (130 / 16: 9 a warp at
+//    2 CTAs), each lane holding 8 rays in registers and taking their
+//    minimum before the one shuffle tree; the keys (entry bits << 32 | id)
+//    meet in the first CTA's shared memory (distributed shared memory),
+//    which sorts them by a bitonic sort (O(n log^2 n) over 256 threads).
 //
 // Arithmetic. Built with -fmad=false and IEEE division: every sum is
 // written in the order _mt_merge uses, so the kernels round exactly as the
 // plain PyTorch version (separate, unfused tensor ops) does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +106,9 @@ constexpr int PARTS = CHUNK / STAGE;
 constexpr int TARGET_CTAS = 4096;   // slices split a call up to about this
 constexpr float EPSILON = 1e-4f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned INF_BITS = 0x7f800000u;
+constexpr int PRE_RAYS = RT / 32;   // rays a lane of K1b holds
+constexpr int SMS = 132;            // an H100 SXM's SMs
 
 typedef unsigned long long u64;
 
@@ -385,68 +399,111 @@ __global__ void mesh_finish_kernel(const u64* __restrict__ best,
   v_out[r] = (dx * qx + dy * qy + dz * qz) * inv_det;
 }
 
-// K1b: one CTA per subtile. Entry distance of each ray into each
-// supergroup box (+inf when the ray's line misses it, passes behind the
-// origin, or enters past the cap), reduced to the subtile's minimum; the
-// live supergroups (finite minimum) then sorted by (entry, id).
+// K1b: each subtile's live supergroups, sorted by (entry, id), on a
+// cluster of `cl` CTAs (cl = 1, 2 or 4 by the subtile count). Every CTA of
+// the cluster holds the subtile's 256 rays in registers (8 a lane) and its
+// supergroup boxes in shared memory; its warps take supergroups in turn
+// (the cluster's cl * 8 warps over them), each lane the minimum of its 8
+// rays' clamped entry distances (+inf where the ray's line misses the box,
+// passes behind the origin or enters past the cap), then one shuffle tree
+// for the warp: the subtile's minimum. The key (entry bits << 32 | id, -0
+// keyed as +0) goes into the first CTA's shared memory (distributed shared
+// memory); after the cluster's barrier that CTA sorts the keys, padded to
+// a power of two with ~0, by a bitonic sort and writes ids, entries and
+// the live count.
 __global__ void __launch_bounds__(RT)
 live_supergroups_kernel(const float* __restrict__ o,
                         const float* __restrict__ inv_d,
                         const float* __restrict__ bb_super, int n_super,
-                        const float* __restrict__ t_cap,
+                        int n_pad, const float* __restrict__ t_cap,
                         int32_t* __restrict__ ids, int32_t* __restrict__ cnt,
                         float* __restrict__ ent) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  u64* key = reinterpret_cast<u64*>(smem);                     // [n_super]
-  float* wmin = reinterpret_cast<float*>(key + n_super);       // [WARPS][n_super]
-  __shared__ int n_live;
-
-  const int sub = blockIdx.x;
-  const int r = sub * RT + threadIdx.x;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* key = reinterpret_cast<u64*>(smem);                  // [n_pad]
+  float* box = reinterpret_cast<float*>(key + n_pad);       // [6, n_super]
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)cluster.num_blocks();
+  const int sub = (int)blockIdx.x / cl;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float ix = inv_d[3 * r], iy = inv_d[3 * r + 1], iz = inv_d[3 * r + 2];
-  const float cap = t_cap ? t_cap[r] : INFINITY;
-  if (threadIdx.x == 0) n_live = 0;
+  // every CTA of the cluster has started before any writes into the
+  // first one's shared memory: arrive now, wait before the first write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  for (int s = 0; s < n_super; ++s) {
-    const float x0 = (bb_super[s] - ox) * ix;
-    const float x1 = (bb_super[3 * n_super + s] - ox) * ix;
-    const float y0 = (bb_super[n_super + s] - oy) * iy;
-    const float y1 = (bb_super[4 * n_super + s] - oy) * iy;
-    const float z0 = (bb_super[2 * n_super + s] - oz) * iz;
-    const float z1 = (bb_super[5 * n_super + s] - oz) * iz;
-    const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)),
-                             fminf(z0, z1));
-    const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)),
-                             fmaxf(z0, z1));
-    const bool hit = (tmin <= tmax + EPSILON) && (tmax >= 0.0f) &&
-                     (tmin <= cap);
-    float e = hit ? fmaxf(tmin, 0.0f) : INFINITY;
+  float ox[PRE_RAYS], oy[PRE_RAYS], oz[PRE_RAYS];
+  float ix[PRE_RAYS], iy[PRE_RAYS], iz[PRE_RAYS], cap[PRE_RAYS];
+#pragma unroll
+  for (int j = 0; j < PRE_RAYS; ++j) {
+    const int r = sub * RT + lane + 32 * j;
+    ox[j] = o[3 * r];
+    oy[j] = o[3 * r + 1];
+    oz[j] = o[3 * r + 2];
+    ix[j] = inv_d[3 * r];
+    iy[j] = inv_d[3 * r + 1];
+    iz[j] = inv_d[3 * r + 2];
+    cap[j] = t_cap ? t_cap[r] : INFINITY;
+  }
+  for (int e = threadIdx.x; e < 6 * n_super; e += RT) box[e] = bb_super[e];
+  if (rank == 0)
+    for (int s = n_super + threadIdx.x; s < n_pad; s += RT) key[s] = ~0ull;
+  __syncthreads();
+  u64* key0 = cluster.map_shared_rank(key, 0);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  for (int s = rank * WARPS + warp; s < n_super; s += cl * WARPS) {
+    const float lx = box[s], ly = box[n_super + s], lz = box[2 * n_super + s];
+    const float hx = box[3 * n_super + s], hy = box[4 * n_super + s],
+                hz = box[5 * n_super + s];
+    float e = INFINITY;
+#pragma unroll
+    for (int j = 0; j < PRE_RAYS; ++j) {
+      const float x0 = (lx - ox[j]) * ix[j], x1 = (hx - ox[j]) * ix[j];
+      const float y0 = (ly - oy[j]) * iy[j], y1 = (hy - oy[j]) * iy[j];
+      const float z0 = (lz - oz[j]) * iz[j], z1 = (hz - oz[j]) * iz[j];
+      const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)),
+                               fminf(z0, z1));
+      const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)),
+                               fmaxf(z0, z1));
+      const bool hit = (tmin <= tmax + EPSILON) && (tmax >= 0.0f) &&
+                       (tmin <= cap[j]);
+      e = fminf(e, hit ? fmaxf(tmin, 0.0f) : INFINITY);
+    }
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       e = fminf(e, __shfl_xor_sync(FULL, e, off));
-    if (lane == 0) wmin[warp * n_super + s] = e;
-  }
-  __syncthreads();
-
-  for (int s = threadIdx.x; s < n_super; s += RT) {
-    float e = wmin[s];
-    for (int w = 1; w < WARPS; ++w) e = fminf(e, wmin[w * n_super + s]);
-    if (e < INFINITY) atomicAdd(&n_live, 1);
     // -0 keys as +0, as the torch sort compares them
-    key[s] = (static_cast<u64>(e == 0.0f ? 0u : __float_as_uint(e)) << 32) |
-             (uint32_t)s;
+    if (lane == 0)
+      key0[s] = (static_cast<u64>(e == 0.0f ? 0u : __float_as_uint(e))
+                 << 32) | (uint32_t)s;
   }
-  __syncthreads();
+  cluster.sync();
+  if (rank != 0) return;
 
-  for (int s = threadIdx.x; s < n_super; s += RT) {
-    const u64 ks = key[s];
-    int rank = 0;
-    for (int q = 0; q < n_super; ++q) rank += key[q] < ks;
-    ids[(size_t)sub * n_super + rank] = s;
-    ent[(size_t)sub * n_super + rank] = __uint_as_float((uint32_t)(ks >> 32));
+  for (int k = 2; k <= n_pad; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < n_pad / 2; i += RT) {
+        const int a = 2 * i - (i & (j - 1));
+        const u64 ka = key[a], kb = key[a + j];
+        if ((ka > kb) == ((a & k) == 0)) {
+          key[a] = kb;
+          key[a + j] = ka;
+        }
+      }
+      __syncthreads();
+    }
   }
-  if (threadIdx.x == 0) cnt[sub] = n_live;
+  // the live keys (a finite entry) come first; the count is where they end
+  const u64 dead = static_cast<u64>(INF_BITS) << 32;
+  for (int i = threadIdx.x; i < n_super; i += RT) {
+    const u64 ks = key[i];
+    ids[(size_t)sub * n_super + i] = (int32_t)(uint32_t)ks;
+    ent[(size_t)sub * n_super + i] = __uint_as_float((uint32_t)(ks >> 32));
+    const bool live = ks < dead;
+    if (live != (i + 1 < n_super && key[i + 1] < dead))
+      cnt[sub] = i + 1;
+    if (i == 0 && !live) cnt[sub] = 0;
+  }
 }
 
 // Slices per subtile: enough CTAs to fill the card (about TARGET_CTAS, 4 or
@@ -495,7 +552,8 @@ extern "C" int mesh_nearest_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1b: ids/ent [n_sub, n_super], cnt [n_sub]; t_cap may be null.
+// K1b: ids/ent [n_sub, n_super], cnt [n_sub]; t_cap may be null;
+// n_super <= 6954 (its keys and boxes in one CTA's shared memory).
 extern "C" int live_supergroups_launch(const float* o, const float* inv_d,
                                        const float* bb_super, int n_super,
                                        const float* t_cap, int32_t* ids,
@@ -503,7 +561,10 @@ extern "C" int live_supergroups_launch(const float* o, const float* inv_d,
                                        void* stream) {
   const int n_sub = n_rays / RT;
   if (n_sub == 0) return 0;
-  const size_t smem = (size_t)n_super * (sizeof(u64) + WARPS * sizeof(float));
+  int n_pad = 1;
+  while (n_pad < n_super) n_pad *= 2;
+  const size_t smem = (size_t)n_pad * sizeof(u64) +
+                      (size_t)n_super * 6 * sizeof(float);
   static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -512,8 +573,25 @@ extern "C" int live_supergroups_launch(const float* o, const float* inv_d,
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }
-  live_supergroups_kernel<<<n_sub, RT, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      o, inv_d, bb_super, n_super, t_cap, ids, cnt, ent);
+  // a cluster of CTAs per subtile where the subtiles alone leave SMs idle:
+  // 4 while that keeps a CTA an SM, else 2 up to one subtile an SM (on the
+  // card, 2 beat 4 and 1 at 64 subtiles, and 4 beat 2 and 8 at 16)
+  const unsigned cl = 4 * n_sub <= SMS ? 4 : (n_sub <= SMS ? 2 : 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_sub * cl);
+  cfg.blockDim = dim3(RT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, live_supergroups_kernel, o, inv_d,
+                                     bb_super, n_super, n_pad, t_cap, ids,
+                                     cnt, ent);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

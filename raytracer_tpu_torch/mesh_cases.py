@@ -91,3 +91,39 @@ def inside_boxes_case(r=2048):
     d = _unit(rng.normal(0, 1, (r, 3)))
     return dict(p1=s["p1"], e1=s["e1"], e2=s["e2"], o=_f32(o), d=_f32(d),
                 t_init=_f32(rng.uniform(0.5, 10, r)))
+
+
+PREPASS_SUPERS = (1, 7, 130, 300)   # the pre-pass cases' supergroup counts
+
+
+def prepass_case(n_super, seed=21):
+    """Supergroup boxes and 512 rays for the pre-pass K1b alone, as
+    ``bb_super`` [6, n_super] (rows lo x, y, z, hi x, y, z) beside o, d
+    and a cap ``t_init`` [512]. The first subtile's rays start at z = -5
+    and head +z: box n_super // 3 holds many of their origins (entry 0,
+    clamped from below), and ray 0 starts on its high x face heading -x
+    (a slab entry of -0); boxes 1 and n_super - 1 repeat boxes 0 and
+    n_super // 2 (tied entries). The second subtile's rays head away
+    from every box (no live supergroup)."""
+    rng = np.random.default_rng(seed + n_super)
+    c = np.stack([rng.uniform(-4, 4, n_super), rng.uniform(-4, 4, n_super),
+                  rng.uniform(2, 30, n_super)], 1)
+    half = rng.uniform(0.2, 1.5, (n_super, 3))
+    lo, hi = c - half, c + half
+    inside = n_super // 3
+    lo[inside], hi[inside] = (-1.0, -1.0, -6.0), (1.0, 1.0, -4.0)
+    if n_super >= 3:
+        lo[1], hi[1] = lo[0], hi[0]
+        lo[-1], hi[-1] = lo[n_super // 2], hi[n_super // 2]
+    o = np.concatenate([
+        np.concatenate([rng.uniform(-1.5, 1.5, (256, 2)),
+                        np.full((256, 1), -5.0)], 1),
+        rng.uniform(-1, 1, (256, 3)) + np.array([0, 0, -10.0])])
+    d = np.concatenate([_unit(rng.normal(0, 0.3, (256, 3)) + [0, 0, 1.0]),
+                        _unit(rng.normal(0, 0.3, (256, 3)) + [0, 0, -1.0])])
+    o[0] = (1.0, 0.0, -5.0)
+    d[0] = _unit(np.array([-1.0, 0.2, 0.3]))
+    cap = rng.uniform(0, 30, 512)
+    cap[::5] = np.inf
+    return dict(bb_super=_f32(np.concatenate([lo.T, hi.T])), o=_f32(o),
+                d=_f32(d), t_init=_f32(cap))

@@ -11,9 +11,11 @@ rays that read each row.
 
 * :func:`table_gather` — on a CUDA tensor the hand-written kernels of
   ``csrc/table_gather.cu`` (built with nvcc at first use, bound through
-  ctypes, as K1 is): the forward an exact copy of rows; the backward a
-  reduction in a fixed order for tables of up to about a thousand rows,
-  an exact integer sum on a fixed-point scale for larger ones (an image's
+  ctypes, as K1 is): the forward an exact copy of rows (a unit a thread
+  up to 1 MB of output, else a CTA's span of rows as 16-byte stores, a
+  small table staged in shared memory); the backward a reduction in a
+  fixed order in one launch for tables of up to several hundred rows, an
+  exact integer sum on a fixed-point scale for larger ones (an image's
   texels), so two calls give the same bits, eagerly or in a CUDA graph
   replay. On a CPU tensor, :func:`table_gather_plain`.
   Nothing else selects the route, and nothing falls back.
@@ -105,27 +107,36 @@ def gather_backward_plain(grad, idx, g):
     return out.reshape((g, *rest))
 
 
-def gather_forward(table, idx):
+def gather_forward(table, idx, out=None):
     """The forward kernel: ``table[idx]``, an exact copy of rows of any
     element type, for a CUDA table and int32 or int64 indices (counted in
-    ``LAUNCHES["gather"]``)."""
+    ``LAUNCHES["gather"]``). ``out``: where to write, a contiguous tensor of
+    the result's shape and type at any address (by default a new one)."""
     g = table.shape[0]
     idx = _index(idx, g)
     if table.device != idx.device or table.device.type != "cuda":
         raise ValueError(f"table_gather: want both on one CUDA device, got "
                          f"{table.device} and {idx.device}")
     table = table.contiguous()
-    out = torch.empty((*idx.shape, *table.shape[1:]), dtype=table.dtype,
-                      device=table.device)
+    shape = (*idx.shape, *table.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=table.dtype, device=table.device)
+    elif (tuple(out.shape) != shape or out.dtype != table.dtype
+          or out.device != table.device or not out.is_contiguous()):
+        raise ValueError(f"table_gather: out must be a contiguous "
+                         f"{table.dtype} {shape} on {table.device}")
     n = idx.numel()
     row_bytes = table.numel() // max(g, 1) * table.element_size()
     if n == 0 or row_bytes == 0:
         return out
-    word = next(w for w in (16, 8, 4, 1) if row_bytes % w == 0
-                and table.data_ptr() % w == 0 and out.data_ptr() % w == 0)
+    unit = 4 if (row_bytes % 4 == 0 and table.data_ptr() % 4 == 0
+                 and out.data_ptr() % 4 == 0) else 1
+    if g * (row_bytes // unit) >= 2 ** 31:
+        raise ValueError(f"table_gather: a table of {g} rows of {row_bytes} "
+                         f"bytes is over 2^31 {unit}-byte units")
     err = _library().table_gather_forward(
         table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
-        out.data_ptr(), n, g, row_bytes, word,
+        out.data_ptr(), n, g, row_bytes, unit,
         torch.cuda.current_stream(table.device).cuda_stream)
     _raise_on(err, "table_gather")
     LAUNCHES["gather"] += 1
@@ -153,9 +164,9 @@ def gather_backward(grad, idx, g):
     out = torch.empty((g, *rest), dtype=torch.float32, device=grad.device)
     if n == 0 or k == 0 or g == 0:
         return out.zero_()
-    if n >= 2 ** 31:
-        raise ValueError(f"table_gather backward: at most 2^31 - 1 indices, "
-                         f"not {n}")
+    if n >= 2 ** 31 or g >= 2 ** 32 - 1:
+        raise ValueError(f"table_gather backward: at most 2^31 - 1 indices "
+                         f"and 2^32 - 2 rows, not {n} and {g}")
     lib = _library()
     words = lib.table_gather_workspace(n, g, k)
     work = torch.empty(words, dtype=torch.float32, device=grad.device) \
@@ -173,8 +184,8 @@ def gather_backward(grad, idx, g):
 
 # the kernels' launch counters, by kernel: the forward's, then the
 # backward's in the order of the C entry's counts
-BACKWARD_KERNELS = ("gather_grad", "gather_reduce", "gather_scale",
-                    "gather_add", "gather_finish")
+BACKWARD_KERNELS = ("gather_grad", "gather_scale", "gather_add",
+                    "gather_finish")
 LAUNCHES = dict.fromkeys(("gather", *BACKWARD_KERNELS), 0)
 
 
@@ -234,9 +245,9 @@ def reset_launches():
 
 def launch_counts() -> dict:
     """The kernels' launch counters (a copy of :data:`LAUNCHES`): "gather"
-    (the forward), "gather_grad" and "gather_reduce" (the backward's tile
-    route), "gather_scale", "gather_add" and "gather_finish" (its
-    fixed-point route)."""
+    (the forward), "gather_grad" (the backward's tile route),
+    "gather_scale", "gather_add" and "gather_finish" (its fixed-point
+    route)."""
     return dict(LAUNCHES)
 
 

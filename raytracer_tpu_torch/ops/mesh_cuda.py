@@ -156,10 +156,14 @@ def live_supergroups_plain(origins, inv_d, bb_super, t_cap=None):
     return ids.to(torch.int32), cnt, ent
 
 
+PREPASS_SUPER_MAX = 6954   # K1b's keys and boxes in one CTA's shared memory
+
+
 def live_supergroups(origins, inv_d, bb_super, t_cap=None):
     """K1b: the function of :func:`live_supergroups_plain`, bit for bit.
-    A CUDA tensor launches ``live_supergroups_kernel`` (one CTA per
-    subtile, counted on this wrapper); a CPU tensor takes the plain
+    A CUDA tensor launches ``live_supergroups_kernel`` (a cluster of 1, 2
+    or 4 CTAs per subtile, counted on this wrapper), for at most
+    :data:`PREPASS_SUPER_MAX` supergroups; a CPU tensor takes the plain
     version."""
     if origins.device.type == "cpu":
         return live_supergroups_plain(origins, inv_d, bb_super, t_cap)
@@ -173,6 +177,9 @@ def live_supergroups(origins, inv_d, bb_super, t_cap=None):
     if r % RT or tuple(inv_d.shape) != (r, 3) or bb_super.shape[0] != 6:
         raise ValueError("live_supergroups: want [R, 3] rays, R a multiple "
                          f"of {RT}, and bb_super [6, n_super]")
+    if n_super > PREPASS_SUPER_MAX:
+        raise ValueError(f"live_supergroups: at most {PREPASS_SUPER_MAX} "
+                         f"supergroups, not {n_super}")
     dev = origins.device
     n_sub = r // RT
     ids = torch.empty((n_sub, n_super), dtype=torch.int32, device=dev)

@@ -140,6 +140,34 @@ def test_prepass_kernel_equals_torch_version():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_super", [*mesh_cases.PREPASS_SUPERS, 5811,
+                                     MC.PREPASS_SUPER_MAX])
+def test_prepass_kernel_cases_equal_torch_version(n_super):
+    """K1b's kernel against live_supergroups_plain on boxes alone
+    (mesh_cases.prepass_case: a subtile that misses everything, tied
+    entries, origins inside a box), capped and uncapped, at the CPU
+    cases' supergroup counts, at 5,811 (the most the first design's
+    shared memory took) and at PREPASS_SUPER_MAX: ids, counts and entries
+    equal, and entries bit-equal but for -0 keyed as +0."""
+    _require_cuda()
+    c = mesh_cases.prepass_case(n_super)
+    o, d, bb, cap = (torch.as_tensor(c[k], device="cuda")
+                     for k in ("o", "d", "bb_super", "t_init"))
+    inv = MC.inverse_dirs(d)
+    for t_cap in (None, cap):
+        before = MC.live_supergroups.launches
+        k = MC.live_supergroups(o, inv, bb, t_cap)
+        torch.cuda.synchronize()
+        assert MC.live_supergroups.launches == before + 1
+        p = MC.live_supergroups_plain(o, inv, bb, t_cap)
+        for x, y in zip(k, p):
+            assert torch.equal(x, y)
+        assert torch.equal(k[2].view(torch.int32),
+                           (p[2] + 0.0).view(torch.int32))
+        assert int(k[1][1]) == 0
+
+
+@pytest.mark.cuda
 def test_cuda_frame_matches_cpu_frame():
     """glass_mesh (all three kernel modes) on cuda and on the CPU: at most
     0.5% of pixels more than one u8 step apart."""
@@ -738,10 +766,10 @@ GATHER_DTYPES = [torch.float32, torch.int32, torch.int64, torch.bool]
                          ids=["G", "Gx3", "Gx27", "Gx5x3"])
 def test_table_gather_kernel_forward_equals_plain(rest, dtype):
     """table_gather's forward kernel against its plain version, bit for
-    bit, for every dtype the call sites use, rows of 1 to 108 bytes (bytes,
-    4-, 8- and 16-byte words), int32 and int64 indices of shapes [R] and
-    [R, S], out-of-range indices clamped, and a table that is a strided
-    view."""
+    bit, for every dtype the call sites use, rows of 1 to 108 bytes (byte
+    and 4-byte units), int32 and int64 indices of shapes [R] and [R, S]
+    (at 131,072 x 4 B and more, the spans of 16-byte stores), out-of-range
+    indices clamped, and a table that is a strided view."""
     _require_cuda()
     from raytracer_tpu_torch.ops import gather_cuda as GA
 
@@ -768,14 +796,90 @@ def test_table_gather_kernel_forward_equals_plain(rest, dtype):
                                GA.gather_forward_plain(view, idx.long()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes", [1, 3, 12, 27, 40, 108])
+def test_table_gather_forward_row_sizes_unaligned(row_bytes):
+    """The forward against its plain version bit for bit at rows of 1, 3,
+    12, 27, 40 and 108 bytes (bool rows below 4-byte multiples, f32 rows
+    above), at ray counts that are multiples of nothing, writing into
+    outputs at offsets that break 16-byte (and for bool rows 4-byte)
+    alignment."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(row_bytes)
+    f32 = row_bytes % 4 == 0
+    cols = row_bytes // 4 if f32 else row_bytes
+    for g in (1, 5, 57):
+        table = (torch.randn((g, cols), device="cuda", generator=gen) if f32
+                 else torch.rand((g, cols), device="cuda", generator=gen)
+                 > 0.5)
+        for n in (1, 33, 16_391, 131_075):
+            idx = torch.randint(-1, g + 1, (n,), device="cuda",
+                                generator=gen)
+            want = GA.gather_forward_plain(table, idx)
+            for shift in (0, 1, 2, 3):
+                buf = torch.empty(n * cols + 4, dtype=table.dtype,
+                                  device="cuda")
+                out = buf[shift:shift + n * cols].view(n, cols)
+                got = GA.gather_forward(table, idx, out=out)
+                assert got.data_ptr() == out.data_ptr()
+                assert torch.equal(got, want), (g, n, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,k", [(1, 10), (4, 10), (1025, 3),
+                                 (2048 * 2048 + 1, 3)])
+def test_table_gather_backward_odd_counts(g, k):
+    """The backward (_check_backward: twice bit-equal, within rtol 1e-5 of
+    the f64 sum) at 524,287 rays, a prime, on both routes."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(g)
+    n = 524_287
+    idx = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.9,
+                      torch.randint(0, min(g, 5), (n,), device="cuda",
+                                    generator=gen),
+                      torch.randint(0, g, (n,), device="cuda",
+                                    generator=gen))
+    _check_backward(GA, torch.randn((n, k), device="cuda", generator=gen),
+                    idx, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,k", [(4, 10), (300, 3), (5000, 3)],
+                         ids=["one_tile", "tiles", "fixed"])
+def test_table_gather_backward_replays_equal_eager(g, k):
+    """The backward captured alone in a CUDA graph and replayed three times
+    on the same inputs: every replay bit-equal to the eager call, made
+    before the capture and again after the replays (the tile route's last
+    CTA leaves its arrival counter at zero for the next launch)."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import gather_cuda as GA
+
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    n = 524_288
+    idx = torch.randint(0, g, (n,), device="cuda", generator=gen)
+    grad = torch.randn((n, k), device="cuda", generator=gen)
+    eager = GA.gather_backward(grad, idx, g)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = GA.gather_backward(grad, idx, g)
+    for _ in range(3):
+        static.zero_()
+        graph.replay()
+        assert torch.equal(static.view(torch.int32), eager.view(torch.int32))
+    again = GA.gather_backward(grad, idx, g)
+    assert torch.equal(again.view(torch.int32), eager.view(torch.int32))
+
+
 def _backward_kernels(GA, n, g, k):
     """The backward kernels one call launches for n indices into a [g, k]
     table, by the route its size picks."""
-    lib = GA._library()
-    if lib.table_gather_fixed(n, g, k):
+    if GA._library().table_gather_fixed(n, g, k):
         return {"gather_scale": 1, "gather_add": 1, "gather_finish": 1}
-    return {"gather_grad": 1,
-            "gather_reduce": int(lib.table_gather_workspace(n, g, k) > 0)}
+    return {"gather_grad": 1}
 
 
 def _check_backward(GA, grad, idx, g):
@@ -813,7 +917,7 @@ def test_table_gather_kernel_backward(g, rest):
     """table_gather's backward kernel (_check_backward) on train-shaped
     inputs: most rays on a few rows. The cases cross both routes: the
     tile route up to TILES_MAX tiles of the table, the fixed-point route
-    beyond (G 1025 at most K, every G > 5 at K 700)."""
+    beyond (G 1025 at every K, G 300 at K 700)."""
     _require_cuda()
     from raytracer_tpu_torch.ops import gather_cuda as GA
 

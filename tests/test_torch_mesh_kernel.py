@@ -190,6 +190,38 @@ def test_live_supergroups_matches_jax():
         assert 0 < int(p[1].min()) and int(p[1].max()) <= bbs.shape[1]
 
 
+@pytest.mark.parametrize("capped", [False, True], ids=["uncapped", "capped"])
+@pytest.mark.parametrize("n_super", mesh_cases.PREPASS_SUPERS)
+def test_live_supergroups_cases_match_jax(n_super, capped):
+    """K1b's plain version against the JAX pre-pass on boxes alone
+    (mesh_cases.prepass_case) at the supergroup counts the kernel must
+    cover: a subtile that misses every box (count 0), boxes with tied
+    entries (ordered by id), origins inside a box (entry 0, and -0 from a
+    slab), capped and uncapped. ids and counts exactly, entries equal as
+    floats (-0 == +0)."""
+    c = mesh_cases.prepass_case(n_super)
+    cap = c["t_init"] if capped else None
+    jinv = 1.0 / jnp.where(jnp.abs(c["d"]) < 1e-12, 1e-12,
+                           jnp.asarray(c["d"]))
+    j = MP._live_supergroups(jnp.asarray(c["o"]), jinv,
+                             jnp.asarray(c["bb_super"]),
+                             None if cap is None else jnp.asarray(cap))
+    p = MC.live_supergroups_plain(
+        torch.as_tensor(c["o"]), MC.inverse_dirs(torch.as_tensor(c["d"])),
+        torch.as_tensor(c["bb_super"]),
+        None if cap is None else torch.as_tensor(cap))
+    for a, b in zip(j, p):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    ids, cnt, ent = (x.numpy() for x in p)
+    assert cnt[0] > 0 and cnt[1] == 0
+    assert np.isinf(ent[1]).all() and (ids[1] == np.arange(n_super)).all()
+    assert ent[0][0] == 0.0 and (np.diff(ent[0][:cnt[0]]) >= 0).all()
+    tied = np.flatnonzero(np.diff(ent[0][:cnt[0]]) == 0)
+    assert (ids[0][tied] < ids[0][tied + 1]).all()
+    if n_super >= 7:
+        assert len(tied) > 0
+
+
 def _plain(c, **kw):
     tri, bb = MC.pack_tri_planes_np(c["p1"], c["e1"], c["e2"])
     return MC.mesh_nearest_plain(

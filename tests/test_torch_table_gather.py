@@ -57,10 +57,41 @@ def test_table_gather_matches_jax(g, rest, dtype, idx_shape):
     rng = np.random.default_rng(g * 31 + len(rest) * 7 + len(idx_shape))
     table = table_of(rng, g, rest, dtype)
     idx = rng.integers(0, g, size=idx_shape).astype(np.int32)
+    check_against_jax(rng, table, idx, dtype, torch.int64, torch.int32)
+
+
+# the lookups of the train cells, as (G, K) of the table, its type and the
+# indices' (chip_smoke 7b records them): flagship_train's material rows
+# (int64 indices, as the port's gids), the shading rows of five and of
+# glass_train's 57 primitives, a flag column and one-column tables
+CELL_CALLS = {"G4_K10_i64": (4, (10,), "f32", torch.int64),
+              "G5_K27": (5, (27,), "f32", torch.int32),
+              "G57_K27": (57, (27,), "f32", torch.int64),
+              "bool": (57, (), "bool", torch.int64),
+              "K1": (1, (), "f32", torch.int64),
+              "K1_i32_table": (4, (), "i32", torch.int32)}
+
+
+@pytest.mark.parametrize("case", list(CELL_CALLS))
+def test_table_gather_cells_match_jax(case):
+    """test_table_gather_matches_jax's checks at the shapes of the train
+    cells' lookups (CELL_CALLS), 4,099 indices."""
+    g, rest, dtype, idx_dtype = CELL_CALLS[case]
+    rng = np.random.default_rng(len(case) * 13 + g)
+    table = table_of(rng, g, rest, dtype)
+    idx = rng.integers(0, g, size=(4099,)).astype(np.int32)
+    check_against_jax(rng, table, idx, dtype, idx_dtype, idx_dtype)
+
+
+def check_against_jax(rng, table, idx, dtype, idx_dtype, grad_idx_dtype):
+    """The port's table_gather of ``table`` at ``idx`` (as ``idx_dtype``)
+    against JAX's: the forward exactly; for an f32 table the gradient of
+    ``sum(w * out)`` (indices as ``grad_idx_dtype``) to rtol 1e-4 and two
+    backwards bit-equal."""
     want = np.asarray(jax.jit(JI.table_gather)(jnp.asarray(table),
                                                jnp.asarray(idx)))
     t_table = torch.from_numpy(table)
-    got = I.table_gather(t_table, torch.from_numpy(idx).long())
+    got = I.table_gather(t_table, torch.from_numpy(idx).to(idx_dtype))
     assert got.dtype == DTYPES[dtype][1]
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
@@ -74,7 +105,7 @@ def test_table_gather_matches_jax(g, rest, dtype, idx_shape):
     for _ in range(2):
         leaf = t_table.clone().requires_grad_(True)
         (torch.from_numpy(w) * I.table_gather(
-            leaf, torch.from_numpy(idx))).sum().backward()
+            leaf, torch.from_numpy(idx).to(grad_idx_dtype))).sum().backward()
         grads.append(leaf.grad)
     np.testing.assert_allclose(grads[0].numpy(), np.asarray(j_grad),
                                rtol=1e-4, atol=1e-6)
