@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the final line):
 
 1. device: the card's name and power limit; build the kernels (K1 and its
-   pre-pass K1b, the tile graph's set_conditionals_kernel, and
+   pre-pass K1b, the tile graph's level_control_kernel and
+   backward_control_kernel, and
    table_gather's forward kernel and the two routes of its backward) from
    raytracer_tpu_torch/csrc with nvcc for sm_90a, one nvcc per source,
    started together, and print ptxas' report; then, on a line of its own,
@@ -66,7 +67,7 @@ Phases (any failure exits non-zero before the final line):
    deterministic jitter mode.
 
 7. the differentiable path (launch counters zeroed again just before it,
-   set_conditionals_kernel's too, and read at its end):
+   the level control kernels' too, and read at its end):
    (7a) scenes.mesh_grad (6,320 triangles, a plane, a sphere; 64x48,
    depth 2): opaque, the image MSE over the eye position through the
    differentiable camera; glass, render_loss_and_grad over partition_scene's
@@ -121,7 +122,11 @@ Phases (any failure exits non-zero before the final line):
    the glass and flagship gradients. Then each
    cell's s/step (7b, 7d) and device busy (7c, 7d). table_gather's
    forward and grad launches of phase 7 (7d's graphed side
-   included) must not be 0. (7e, after the counts are read)
+   included) must not be 0, nor level_control_kernel's and
+   backward_control_kernel's; each kept train program's forward graph
+   must hold one control kernel node a level among its top-level nodes,
+   its backward graph one (graph_cuda.node_counts). (7e, after the
+   counts are read)
    table_gather replayed with a seeded gradient on glass_train's and
    flagship_train's largest differentiated calls of a table of more
    than one row (real gradients: the material rows), on the largest
@@ -194,11 +199,15 @@ Phases (any failure exits non-zero before the final line):
    captured alone in a CUDA graph, replayed on two fresh inputs (the rays
    moved and turned by a little noise) copied into their static buffers:
    K1 against the plain version at phase 2's tolerances, K1b exactly;
-   set_conditionals_kernel in a toy tile graph of four IF nodes against
-   the host's choice of branch on the same flags (exactly), timed; and a
-   toy level of the train program's shape, a backward tile graph of five
-   IF bodies (gather vjps) on the flags its forward wrote, against the
-   host's choice and gradient (exactly). (10b,
+   level_control_kernel in a toy tile graph of a 16,384-ray packing
+   level (four IF nodes, trivial bodies) against the host's choice of
+   branch (render.level_predicates, then render.taken_branch) and against
+   its plain version (graph_cuda.level_control_plain) on the same live
+   counts (flags, log entry and the body run, exactly), timed; and a toy
+   level of the train program's shape, a forward whose
+   level_control_kernel writes five flags and a backward tile graph whose
+   backward_control_kernel sets five IF bodies (gather vjps) from them,
+   against the host's choice and gradient (exactly), timed. (10b,
    launch counters zeroed just before and read just after)
    dragons_equiv, glass_mesh, flagship, cli_csg_area_light (random
    jitter) and cli_soft_glass, graphed (render's default) against
@@ -211,7 +220,9 @@ Phases (any failure exits non-zero before the final line):
    equal to eager's), peak device memory of each side, the graph pool's
    bytes and allocated + pool against eager's peak; only the graphed
    frames' launches join the kernels line, the eager control's are
-   logged apart. (10c) one graphed and one eager dragons_equiv frame
+   logged apart; the dragons tile graph's top-level nodes must be its
+   two captured parts and, a level, one level_control_kernel node and
+   its IF nodes. (10c) one graphed and one eager dragons_equiv frame
    under torch.profiler: device busy, idle share, the host's graph
    launches, kernel launches and stream syncs, and the device events of
    K1's walk (by template) and of K1b, which must equal the launch
@@ -223,7 +234,8 @@ Phases (any failure exits non-zero before the final line):
 
 The last three lines of standard output: the card's name and power limit,
 one JSON object with the kernels' numbers (launches: the main-path runs
-of phases 5 to 10; set_conditionals_kernel's: phases 7 and 10;
+of phases 5 to 10; level_control_kernel's: phases 7 and 10;
+backward_control_kernel's: phase 7;
 table_gather's: phases 5 and 7, by kernel, its times from 7e's largest
 call of a real gradient, each replay's beside them), and the device JSON
 object.
@@ -1737,16 +1749,16 @@ def no_indexing_backward(prof, label):
 
 def grad_phase(mc, gc, dev, out_dir, dragons):
     """Phase 7, the differentiable path on the card (launch counters zeroed
-    just before it, set_conditionals_kernel's too, read at its end). Its
+    just before it, the level control kernels' too, read at its end). Its
     numbers keep each train cell's step and state under "runs", for phase
     8's packing off/on steps."""
     from raytracer_tpu_torch.examples import inverse_render
     from raytracer_tpu_torch.ops import gather_cuda as GA
 
-    log("[7] the differentiable path (K1 and set_conditionals launch "
+    log("[7] the differentiable path (K1 and level control launch "
         "counters zeroed)")
     mc.reset_launches()
-    gc.set_conditionals_launches = 0
+    gc.reset_launches()
     out = {"parity": grad_parity(mc, dev)}
     cells, runs, out["max_err"], gathers = train_cells(mc, dev, dragons)
     out["cells"], out["runs"] = cells, runs
@@ -1805,11 +1817,14 @@ def grad_phase(mc, gc, dev, out_dir, dragons):
                 "device_busy_s"))
     out["steps"] = steps
     log(f"  [7d] s/step and device busy: {json.dumps(steps)}")
-    out["cond_launches"] = gc.set_conditionals_launches
-    log(f"  set_conditionals_kernel launches of phase 7 (the train "
-        f"programs' forward and backward graphs): {out['cond_launches']}")
-    if out["cond_launches"] == 0:
-        raise AssertionError("phase 7 launched no set_conditionals_kernel")
+    out["cond_launches"] = gc.launch_counts()
+    log(f"  level control launches of phase 7 (level_control_kernel in the "
+        f"train programs' forward graphs, backward_control_kernel in their "
+        f"backward graphs): {out['cond_launches']}")
+    if not all(out["cond_launches"].values()):
+        raise AssertionError(f"phase 7 did not launch both level control "
+                             f"kernels: {out['cond_launches']}")
+    out["graph_nodes"] = train_graph_nodes(gc)
     # 7e, after the counts are read: glass_train's and flagship_train's
     # largest differentiated lookups of a table of more than one row, the
     # largest of all (a padding table of one row), and a texture's texels
@@ -2686,49 +2701,85 @@ def compiled_cell(mc, label, scene, cam):
     return res
 
 
-def conditionals_check(gc):
-    """10a: set_conditionals_kernel on a toy level, a tile graph of four
-    IF nodes whose bodies each write their mark, against its plain
-    version, the host's choice (``render.taken_branch``) of the same
-    flags: for each of 9 flag settings (none, each branch, twice over)
-    exactly the flagged branch must run. Its time per launch of that
-    graph (CUDA events, 200 launches), the plain version's (flags read on
-    the host, then the chosen body's graph replayed; host clock over 200
-    decisions) and the bound (the 16 bytes of flags read once). Returns
-    the kernels line's numbers (max_abs_err: branches that disagree)."""
+def capture_part(fn, pool, side):
+    """``fn`` run once on ``side`` (its warm-up), then captured there into
+    a graph of ``pool`` that keeps its ``cudaGraph_t``, as the tile and
+    train programs capture their parts. A pool's graphs must all live
+    until its last capture."""
     import torch
 
-    from raytracer_tpu_torch.core.render import taken_branch
-
-    out = torch.zeros(4, dtype=torch.int32, device="cuda")
-    flags = torch.zeros(4, dtype=torch.int32, device="cuda")
-    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-    bodies = []
-    for k in range(4):
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
         g = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.stream(side):
-            g.capture_begin(pool=pool)
-            out[k].fill_(k + 1)
-            g.capture_end()
-        g.instantiate()
-        bodies.append(g)
-    tg = gc.TileGraph([(flags, bodies)])
-    wrong = 0
-    for k in (None, 0, 1, 2, 3, 3, 2, 1, 0):
-        flags.zero_()
+        g.capture_begin(pool=pool)
+        fn()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return g
+
+
+def toy_bodies(n, pool, side):
+    """``n`` trivial bodies (capture_part): body k adds k + 1 to its slot
+    of ``out`` (int32 [n]). Returns (out, bodies)."""
+    import torch
+
+    out = torch.zeros(n, dtype=torch.int32, device="cuda")
+    return out, [capture_part(lambda k=k: out[k].add_(k + 1), pool, side)
+                 for k in range(n)]
+
+
+def conditionals_check(gc):
+    """10a: level_control_kernel on a toy level, a tile graph of one
+    16,384-ray packing level (a mesh of 25,280 triangles: the four widths
+    R/16 to R) whose four IF bodies each write their mark, for 13 live
+    counts (0, the widths' edges, the whole level): the kernel's flags,
+    its log entry and the body that ran against its plain version
+    (graph_cuda.level_control_plain) and against the host's choice
+    (render.level_predicates read on the host, render.taken_branch), all
+    exactly. Its time per launch of that graph (CUDA events, 200
+    launches), the plain version's (the plain decision on the card, its
+    flags read on the host and the chosen body's graph replayed; host
+    clock over 200 decisions) and the bound (8 bytes read, 4 flags and
+    the log entry written). Returns the kernels line's numbers
+    (max_abs_err: launches that disagree)."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
+
+    st = T.SceneStatic(counts=(0, 0, 0, 0, 0, 25280))
+    rows = 16384
+    branches = R.level_branches(st, rows)
+    codes = gc.branch_codes(branches)
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    flags = torch.zeros(len(branches), dtype=torch.int32, device="cuda")
+    log_ = torch.zeros(1, dtype=torch.int32, device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    out, bodies = toy_bodies(len(branches), pool, side)
+    tg = gc.TileGraph([gc.Control(live, rows, branches, flags, log_[0],
+                                  bodies)])
+    wrong, taken = 0, []
+    for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 4,
+                   rows // 4 + 1, rows // 2, rows // 2 + 1, rows, 300, 0,
+                   rows - 1, 2):
+        live.fill_(n_live)
         out.zero_()
-        if k is not None:
-            flags[k] = 1
         tg.launch()
-        want = taken_branch(flags.cpu())
+        want, entry = gc.level_control_plain(live.cpu(), rows, codes)
+        k = R.taken_branch(R.level_predicates(st, rows, live.cpu()))
         got = [j for j, x in enumerate(out.cpu().tolist()) if x]
-        wrong += got != ([] if want is None else [want])
-    flags.zero_()
-    flags[2] = 1
+        wrong += not (torch.equal(flags.cpu(), want)
+                      and int(log_[0]) == int(entry)
+                      and got == ([] if k is None else [k])
+                      and R.taken_branch(want) == k)
+        taken.append(None if k is None else branches[k])
+    live.fill_(rows // 3)
     ms = cuda_ms(tg.launch, 200)
 
     def plain():
-        k = taken_branch(flags.cpu())
+        f, _ = gc.level_control_plain(live, rows, codes)
+        k = R.taken_branch(f.cpu())
         if k is not None:
             bodies[k].replay()
 
@@ -2739,28 +2790,41 @@ def conditionals_check(gc):
         plain()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    nodes = gc.node_counts(tg)
     res = dict(max_abs_err=float(wrong), ms=ms, plain_ms=plain_ms,
-               bound_ms=flags.numel() * 4 / PEAK_BYTES_PER_S * 1e3,
-               bound_by="bytes", library_ms=None)
-    log(f"  [10a] set_conditionals_kernel on a toy level of 4 branches vs "
-        f"the host's choice: {json.dumps(res)}")
+               bound_ms=(8 + 4 * (len(branches) + 1)) / PEAK_BYTES_PER_S
+               * 1e3, bound_by="bytes", library_ms=None, nodes=nodes,
+               taken=taken)
+    log(f"  [10a] level_control_kernel on a toy level of 4 branches vs its "
+        f"plain version and the host's choice: {json.dumps(res)}")
     if wrong:
-        raise AssertionError(f"set_conditionals: {wrong} launches ran "
-                             f"other branches than the flags say")
+        raise AssertionError(f"level_control: {wrong} launches disagree "
+                             f"with the plain decision or ran other "
+                             f"branches")
+    if nodes != dict(total=1 + len(branches), kernels=1, children=0,
+                     other=len(branches)):
+        raise AssertionError(f"level_control: the toy graph's nodes "
+                             f"{nodes}")
     return res
 
 
 def backward_conditionals_check(gc):
-    """10a: set_conditionals_kernel on a toy level of the train program's
-    shape: a forward tile graph whose predicates part writes five flags
-    (the four packed widths of a 4,096-ray mesh level and the dead level,
-    render.level_predicates(..., dead=True)) from a live count, and a
-    backward tile graph whose five IF bodies, each the captured vjp of a
-    gather (index_put_'s accumulate, as in a level's backward), read
-    those kept flags. For 8 live counts (0, the widths' edges, the whole
-    level) exactly the flagged body must write its gradient, equal to the
-    host's (render.taken_branch of the flags, then the gradient in
-    torch). Returns the number of launches whose bodies disagree."""
+    """10a: the level control of a toy level of the train program's
+    shape: a forward tile graph whose level_control_kernel writes five
+    flags (the four packed widths of a 4,096-ray mesh level and the dead
+    level) from a live count, its bodies trivial, and a backward tile
+    graph whose backward_control_kernel sets the handles of five IF
+    bodies, each the captured vjp of a gather (index_put_'s accumulate,
+    as in a level's backward), from those kept flags. For 8 live counts
+    (0, the widths' edges, the whole level) exactly the flagged body must
+    write its gradient, equal to the host's (render.taken_branch of the
+    flags, then the gradient in torch). Then the backward graph's time
+    per launch (CUDA events, 200 launches, ``whole_ms``) less its body's
+    own (the flagged body's graph replayed alone, ``body_ms``),
+    the plain version's (the flags read on the host, the chosen body's
+    graph replayed; host clock over 200) and the bound (20 bytes of flags
+    read). Returns the kernels line's numbers (max_abs_err: launches
+    whose bodies disagree)."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
@@ -2772,36 +2836,25 @@ def backward_conditionals_check(gc):
     n = len(branches)
     live = torch.zeros((), dtype=torch.int64, device="cuda")
     flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    log_ = torch.zeros(1, dtype=torch.int32, device="cuda")
     x = torch.rand((64, 3), device="cuda", requires_grad=True)
     idx = torch.randint(0, 64, (rows,), device="cuda")
     out = torch.zeros((n, 64, 3), device="cuda")
     pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-
-    def pred():
-        flags.copy_(R.level_predicates(st, rows, live, dead=True))
 
     def body(k):
         with torch.enable_grad():
             (g,) = torch.autograd.grad((x[idx] * float(k + 1)).sum(), x)
         out[k].copy_(g)
 
-    def captured(fn):
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            g.capture_begin(pool=pool)
-            fn()
-            g.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
-        return g
-
     # the parts outlive the tile graphs: their pool and memory are
     # what the graphs' kernels address
-    pred_part = captured(pred)
-    bodies = [captured(lambda k=k: body(k)) for k in range(n)]
-    fwd = gc.TileGraph([pred_part])
-    bwd = gc.TileGraph([(flags, bodies)])
+    _, noop = toy_bodies(n, pool, side)
+    bodies = [capture_part(lambda k=k: body(k), pool, side)
+              for k in range(n)]
+    fwd = gc.TileGraph([gc.Control(live, rows, branches, flags, log_[0],
+                                   noop)])
+    bwd = gc.TileGraph([gc.Backward([(flags, bodies)])])
     wrong, taken = 0, []
     for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 4 + 1, rows // 2,
                    rows, 0):
@@ -2819,13 +2872,58 @@ def backward_conditionals_check(gc):
                               else R.level_width(st, rows, n_live))
         wrong += not ok
         taken.append(str(branches[k]))
-    log(f"  [10a] a toy backward level of {n} IF bodies (gather vjps) on "
-        f"the flags its forward wrote, 8 live counts: branches taken "
-        f"{taken}, launches disagreeing with the host's choice: {wrong}")
+    live.fill_(rows // 3)
+    fwd.launch()
+    k = R.taken_branch(flags.cpu())
+    whole_ms = cuda_ms(bwd.launch, 200)
+    body_ms = cuda_ms(bodies[k].replay, 200)
+
+    def plain():
+        j = R.taken_branch(flags.cpu())
+        if j is not None:
+            bodies[j].replay()
+
+    plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3 - body_ms
+    nodes = gc.node_counts(bwd)
+    res = dict(max_abs_err=float(wrong), ms=whole_ms - body_ms,
+               plain_ms=plain_ms, bound_ms=4 * n / PEAK_BYTES_PER_S * 1e3,
+               bound_by="bytes", library_ms=None, whole_ms=whole_ms,
+               body_ms=body_ms, nodes=nodes, taken=taken)
+    log(f"  [10a] a toy backward level of {n} IF bodies (gather vjps) set by "
+        f"backward_control_kernel from the flags its forward's "
+        f"level_control_kernel wrote, 8 live counts, vs the host's choice: "
+        f"{json.dumps(res)}")
     if wrong:
-        raise AssertionError(f"backward conditionals: {wrong} launches ran "
+        raise AssertionError(f"backward control: {wrong} launches ran "
                              f"other bodies than the flags say")
-    return wrong
+    if nodes != dict(total=1 + n, kernels=1, children=0, other=n):
+        raise AssertionError(f"backward control: the toy graph's nodes "
+                             f"{nodes}")
+    return res
+
+
+def control_nodes(gc, tg, children, levels, backward=None):
+    """The top-level nodes of a tile graph against its design: the
+    ``children`` captured parts (child-graph nodes), each of ``levels``
+    (branches per level) one level_control_kernel node and its IF nodes,
+    and ``backward`` (branches per level of a backward) one
+    backward_control_kernel node and the levels' IF nodes: the kernel
+    nodes are the control kernels alone, the other nodes the IF nodes.
+    Returns the counts."""
+    nodes = gc.node_counts(tg)
+    ifs = sum(levels) + sum(backward or ())
+    want = dict(total=children + len(levels) + bool(backward) + ifs,
+                kernels=len(levels) + bool(backward), children=children,
+                other=ifs)
+    if nodes != want:
+        raise AssertionError(f"a tile graph's nodes {nodes}, not {want}")
+    return nodes
 
 
 # K1's and K1b's device kernels as the profiler names them, and the
@@ -2843,7 +2941,7 @@ HAND_KERNELS = ("table_gather_kernel", "table_gather_grad_kernel",
                 "table_gather_add_kernel", "table_gather_finish_kernel",
                 "live_supergroups_kernel", "mesh_walk_kernel<false>",
                 "mesh_walk_kernel<true>", "mesh_finish_kernel",
-                "set_conditionals_kernel")
+                "level_control_kernel", "backward_control_kernel")
 
 
 def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
@@ -2945,29 +3043,57 @@ def host_breakdown(reps=3):
     return res
 
 
+def train_graph_nodes(gc):
+    """The top-level nodes of each kept train program's forward and
+    backward graph, held to their design (control_nodes): a forward
+    level one level_control_kernel node and its IF nodes, a backward one
+    backward_control_kernel node."""
+    from raytracer_tpu_torch.core import train_program as TPG
+
+    out = []
+    for prog in TPG.programs():
+        if prog.fwd_graph is None:
+            continue
+        levels = [len(prog.branches[lv]) for lv in range(1, prog.end)]
+        out.append(dict(
+            rows=prog.rows, levels=len(levels),
+            fwd=control_nodes(gc, prog.fwd_graph, 2, levels),
+            bwd=control_nodes(gc, prog.bwd_graph, 2, [], levels)))
+    log(f"  [7d] the train programs' graphs, top-level nodes: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def compiled_phase(mc, gc, d_calls, cells):
     """Phase 10, the compiled frame: 10a K1 and K1b captured alone and
-    set_conditionals_kernel on a toy level (before the counters are
+    the level control kernels on toy levels (before the counters are
     zeroed), then the five cells graphed against eager (counters zeroed
     just before, read just after; the kernels line takes the graphed
     frames' launches only, the eager control's are logged apart), then
     one graphed and one eager dragons frame under torch.profiler."""
+    from raytracer_tpu_torch.core import tile_program as TP
+
     log("[10] the compiled frame")
     call = next(c for c in d_calls if mode_of(c) == "nearest")
     out = {}
     out["alone_max_err"], out["alone_pre_err"] = captured_alone(mc, call)
     out["conditionals"] = conditionals_check(gc)
-    out["backward_conditionals_wrong"] = backward_conditionals_check(gc)
-    log("  (K1 and set_conditionals launch counters zeroed)")
+    out["backward_conditionals"] = backward_conditionals_check(gc)
+    log("  (K1 and level control launch counters zeroed)")
     mc.reset_launches()
-    gc.set_conditionals_launches = 0
+    gc.reset_launches()
     out["cells"] = {label: compiled_cell(mc, label, scene, cam)
                     for label, (scene, cam) in cells.items()}
-    out["cond_launches"] = gc.set_conditionals_launches
-    log(f"  set_conditionals_kernel launches of phase 10's graphed frames: "
+    out["cond_launches"] = gc.launch_counts()
+    log(f"  level_control_kernel launches of phase 10's graphed frames: "
         f"{out['cond_launches']}")
-    if out["cond_launches"] == 0:
-        raise AssertionError("phase 10 launched no set_conditionals_kernel")
+    if out["cond_launches"]["level_control"] == 0:
+        raise AssertionError("phase 10 launched no level_control_kernel")
+    prog = TP.program_of(cells["dragons_equiv"][0])
+    out["dragons_tile_graph_nodes"] = control_nodes(
+        gc, prog.tiles[True], 2, [len(b) for b in prog.branches[1:]])
+    log(f"  the dragons_equiv tile graph's top-level nodes: "
+        f"{out['dragons_tile_graph_nodes']}")
     read = mc.launch_counts()
     sides = {g: {k: sum(c["launches"][g][k] for c in out["cells"].values())
                  for k in read} for g in ("graphed", "eager")}
@@ -3331,13 +3457,25 @@ def main(argv=None):
         "graph_ms": main_k1["prepass_graph_ms"],
         "device": device("live_supergroups_kernel"),
     }, {
-        "name": "set_conditionals",
+        "name": "level_control",
         "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/tile_graph.cu",
-        "replaces": "raytracer_tpu/core/render.py:338",
-        "launches": grad.pop("cond_launches") + p10.pop("cond_launches"),
+        "replaces": "raytracer_tpu/core/render.py:337",
+        "replaces_kind": "XLA (lax.cond), not Pallas",
+        "launches": (grad["cond_launches"]["level_control"]
+                     + p10["cond_launches"]["level_control"]),
         **p10["conditionals"],
-        "device": device("set_conditionals_kernel"),
+        "device": device("level_control_kernel"),
+    }, {
+        "name": "backward_control",
+        "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/tile_graph.cu",
+        "replaces": "raytracer_tpu/core/render.py:430",
+        "replaces_kind": "XLA (lax.cond in the backward), not Pallas",
+        "launches": (grad["cond_launches"]["backward_control"]
+                     + p10["cond_launches"]["backward_control"]),
+        **p10["backward_conditionals"],
+        "device": device("backward_control_kernel"),
     }, {
         "name": "table_gather",
         "route": "cuda",

@@ -3,10 +3,15 @@
 
     python3 kernels_ab.py --old DIR [--out DIR]
 
-DIR holds an earlier ``table_gather.cu`` and ``mesh_nearest.cu`` (for
-example ``git show <commit>:raytracer_tpu_torch/csrc/table_gather.cu``).
-Both versions are built with nvcc beside the current sources' libraries
-and called through their C entry points on the same recorded inputs:
+DIR holds an earlier ``table_gather.cu`` and ``mesh_nearest.cu``, an
+earlier ``tile_graph.cu``, or all three (for example ``git show
+<commit>:raytracer_tpu_torch/csrc/table_gather.cu``); each part below
+runs where DIR holds its sources. Both versions are built with nvcc
+beside the current sources' libraries and called through their C entry
+points on the same inputs.
+
+Where DIR holds ``table_gather.cu`` and ``mesh_nearest.cu``, on the same
+recorded inputs:
 
 * every ``table_gather`` call of one eager flagship_train and one eager
   glass_train gradient (512x256 rays, n_micro=4, as chip_smoke.py's 7b)
@@ -24,6 +29,24 @@ beside it the PyTorch call for the same function (``table[idx]``,
 bit, the new K1b the old exactly, and the new backward must give the same
 bits twice; the two backwards may differ in the last bits (another fixed
 order of the sum), by at most rtol 1e-5 of the terms' magnitudes.
+
+Where DIR holds ``tile_graph.cu`` (the level control before
+``level_control_kernel``: a captured predicates part, then
+``set_conditionals_kernel``, for each level):
+
+* the nodes of the predicates part that the earlier tile and train
+  programs captured for a level (``render.level_predicates`` committed
+  into the level's flags), all and kernels, on a level that packs and
+  one that does not, at a dragons tile's 16,384 rays and a train
+  microbatch's 32,768 (with the dead level);
+* a toy level's whole graph launch, 200 launches between CUDA events, in
+  turns old, new, new, old: a 16,384-ray packing level (four widths),
+  old the predicates part, ``set_conditionals_kernel`` and four IF nodes
+  with trivial bodies, new ``level_control_kernel`` and the same IF
+  nodes; both must run the same bodies on 13 live counts;
+* a toy backward of four levels of five IF nodes on kept flags: old one
+  ``set_conditionals_kernel`` a level, new one
+  ``backward_control_kernel``; both must run the same bodies.
 
 The numbers go to ``DIR_OUT/kernels_ab.json`` and, as one JSON object, to
 the last line of standard output after the card's name and power limit.
@@ -143,6 +166,157 @@ class Recorder:
         return self.orig(table, idx)
 
 
+class OldTileGraph:
+    """A tile graph of the earlier ``tile_graph.cu``: captured parts
+    (``CUDAGraph``s kept with ``keep_graph=True``) and levels (flags,
+    bodies), each ``set_conditionals_kernel`` and one IF node a body."""
+
+    def __init__(self, lib, parts):
+        self.lib = lib
+        self.graph, self.exec = ctypes.c_void_p(), ctypes.c_void_p()
+        last = ctypes.c_void_p()
+        self._check(lib.tile_graph_create(ctypes.byref(self.graph)))
+        for part in parts:
+            if isinstance(part, tuple):
+                flags, bodies = part
+                arr = (ctypes.c_void_p * len(bodies))(
+                    *(b.raw_cuda_graph() for b in bodies))
+                self._check(lib.tile_graph_add_level(
+                    self.graph, len(bodies), arr, flags.data_ptr(),
+                    ctypes.byref(last)))
+            else:
+                self._check(lib.tile_graph_add_child(
+                    self.graph, part.raw_cuda_graph(), ctypes.byref(last)))
+        self._check(lib.tile_graph_instantiate(self.graph,
+                                               ctypes.byref(self.exec)))
+
+    @staticmethod
+    def _check(err):
+        if err:
+            raise RuntimeError(f"old tile graph: CUDA error {err}")
+
+    def launch(self):
+        import torch
+
+        self._check(self.lib.tile_graph_launch(
+            self.exec, torch.cuda.current_stream().cuda_stream))
+
+    def __del__(self):
+        self.lib.tile_graph_destroy(self.graph, self.exec)
+
+
+def _bind_old_tile_graph(path):
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.tile_graph_create.argtypes = [pp]
+    lib.tile_graph_add_child.argtypes = [p, p, pp]
+    lib.tile_graph_add_level.argtypes = [p, i, pp, p, pp]
+    lib.tile_graph_instantiate.argtypes = [p, pp]
+    lib.tile_graph_launch.argtypes = [p, p]
+    lib.tile_graph_destroy.argtypes = [p, p]
+    return lib
+
+
+def control_ab(old_dir, res):
+    """The level control's part (see the module docstring): fills
+    ``res["control"]``."""
+    import torch
+
+    import chip_smoke as CS
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+    from raytracer_tpu_torch.ops import mesh_cuda as MC
+
+    GC.check_support()
+    path, _ = MC.nvcc_build(old_dir / "tile_graph.cu", GC.NVCC_FLAGS,
+                            "tile_graph_old")
+    old = _bind_old_tile_graph(path)
+    statics = {"packs": T.SceneStatic(counts=(0, 0, 0, 0, 0, 25280)),
+               "whole": T.SceneStatic(counts=(3, 1, 0, 0, 0, 0))}
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    kept = []       # every graph of the shared pool lives to the end
+
+    def captured(fn):
+        kept.append(CS.capture_part(fn, pool, side))
+        return kept[-1]
+
+    def predicates(st, rows, flags, dead):
+        return captured(lambda: flags.copy_(
+            R.level_predicates(st, rows, live, dead=dead)))
+
+    out = res["control"] = {"predicates_nodes": {}}
+    for kind, st in statics.items():
+        for where, rows, dead in (("tile", 16384, False),
+                                  ("train", 32768, True)):
+            n = len(R.level_branches(st, rows, dead=dead))
+            flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+            out["predicates_nodes"][f"{where} {rows} {kind}"] = \
+                GC.node_counts(predicates(st, rows, flags, dead))
+    print(json.dumps(out), flush=True)
+
+    st, rows = statics["packs"], 16384
+    branches = R.level_branches(st, rows)
+    n = len(branches)
+    flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    log_ = torch.zeros(1, dtype=torch.int32, device="cuda")
+    marks, bodies = CS.toy_bodies(n, pool, side)
+    kept += bodies
+    pred = predicates(st, rows, flags, False)
+    graphs = {"old": OldTileGraph(old, [pred, (flags, bodies)]),
+              "new": GC.TileGraph([GC.Control(live, rows, branches, flags,
+                                              log_[0], bodies)])}
+    for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 4, rows // 4 + 1,
+                   rows // 2, rows // 2 + 1, rows, 300, 0, rows - 1, 2):
+        ran = {}
+        for side_, tg in graphs.items():
+            live.fill_(n_live)
+            marks.zero_()
+            tg.launch()
+            ran[side_] = (marks.cpu().tolist(), flags.cpu().tolist())
+        if ran["old"] != ran["new"]:
+            raise AssertionError(f"toy level, {n_live} live: old ran "
+                                 f"{ran['old']}, new {ran['new']}")
+    live.fill_(rows // 3)
+    out["toy_level"] = dict(
+        rows=rows, branches=n,
+        old_nodes=GC.node_counts(pred),
+        **turns(graphs["old"].launch, graphs["new"].launch,
+                lambda f: CS.cuda_ms(f, 200)))
+    print(json.dumps(out["toy_level"]), flush=True)
+
+    levels = []
+    for _ in range(4):
+        f = torch.zeros(GC.MAX_BRANCHES, dtype=torch.int32, device="cuda")
+        m, bodies = CS.toy_bodies(GC.MAX_BRANCHES, pool, side)
+        kept += bodies
+        levels.append((f, bodies, m))
+    graphs = {"old": OldTileGraph(old, [(f, b) for f, b, _ in levels]),
+              "new": GC.TileGraph([GC.Backward([(f, b)
+                                                for f, b, _ in levels])])}
+    for k in range(-1, GC.MAX_BRANCHES):
+        for j, (f, _, _) in enumerate(levels):
+            f.zero_()
+            if (k + j) % (GC.MAX_BRANCHES + 1) < GC.MAX_BRANCHES:
+                f[(k + j) % (GC.MAX_BRANCHES + 1)] = 1
+        ran = {}
+        for side_, tg in graphs.items():
+            for _, _, m in levels:
+                m.zero_()
+            tg.launch()
+            ran[side_] = [m.cpu().tolist() for _, _, m in levels]
+        if ran["old"] != ran["new"]:
+            raise AssertionError(f"toy backward: old ran {ran['old']}, "
+                                 f"new {ran['new']}")
+    out["toy_backward"] = dict(
+        levels=len(levels), branches=GC.MAX_BRANCHES,
+        **turns(graphs["old"].launch, graphs["new"].launch,
+                lambda f: CS.cuda_ms(f, 200)))
+    print(json.dumps(out["toy_backward"]), flush=True)
+
+
 def turns(old, new, timer):
     """old, new, new, old: each side's two times and their mean."""
     t = [timer(f) for f in (old, new, new, old)]
@@ -151,19 +325,11 @@ def turns(old, new, timer):
                 new_ms=statistics.mean([t[1], t[2]]))
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", required=True,
-                    help="directory with the earlier table_gather.cu and "
-                         "mesh_nearest.cu")
-    ap.add_argument("--out", default=str(HERE / "build" / "kernels_ab"))
-    args = ap.parse_args(argv)
-
+def gather_ab(old_dir, res):
+    """The gathers' and K1b's part (see the module docstring): fills
+    ``res["forward"]``, ``res["backward"]`` and ``res["prepass"]``."""
     import torch
-    if not torch.cuda.is_available():
-        print("kernels_ab: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(HERE))
+
     import chip_smoke as CS
     from raytracer_tpu_torch import scenes
     from raytracer_tpu_torch.core import render as R
@@ -173,9 +339,6 @@ def main(argv=None):
         partition_scene, render_loss_and_grad)
     from raytracer_tpu_torch.scene import build_scene
 
-    old_dir = Path(args.old)
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
     libs = {}
     for side, src in (("old", old_dir), ("new", HERE / "raytracer_tpu_torch"
@@ -187,7 +350,7 @@ def main(argv=None):
         libs[side] = (_bind(tg), _bind(mn))
     gathers = {"old": Gather(libs["old"][0], (16, 8, 4, 1)),
                "new": Gather(libs["new"][0], (4, 1))}
-    res = dict(device=CS.smi_line(), forward=[], backward=[], prepass=[])
+    res.update(forward=[], backward=[], prepass=[])
 
     h, v = CS.TRAIN_SIZE
     calls = {}
@@ -274,6 +437,35 @@ def main(argv=None):
         res["prepass"].append(row)
         print(json.dumps(row), flush=True)
 
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", required=True,
+                    help="directory with the earlier table_gather.cu and "
+                         "mesh_nearest.cu, tile_graph.cu, or all three")
+    ap.add_argument("--out", default=str(HERE / "build" / "kernels_ab"))
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernels_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as CS
+
+    old_dir = Path(args.old)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = dict(device=CS.smi_line())
+    if (old_dir / "tile_graph.cu").exists():
+        control_ab(old_dir, res)
+    if all((old_dir / f).exists() for f in ("table_gather.cu",
+                                            "mesh_nearest.cu")):
+        gather_ab(old_dir, res)
+    elif "control" not in res:
+        print(f"kernels_ab: {old_dir} holds no earlier source",
+              file=sys.stderr)
+        return 2
     (out_dir / "kernels_ab.json").write_text(json.dumps(res, indent=1))
     print(res["device"])
     print(json.dumps(res))

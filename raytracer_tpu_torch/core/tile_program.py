@@ -13,14 +13,16 @@ A :class:`TileProgram` runs a tile as one graph:
 
 1. level 0: the primary rays (``render.tile_rays``), the shade, the spawn
    merge and the next level's live count, in a device scalar;
-2. for each level L from 1 to the limit, where the scene spawns: the
-   flags of ``render.level_predicates`` from the live count, one per
-   branch of ``render.level_branches`` (the widths R/16, R/4, R/2 and R
-   where the level packs, else the whole level); the kernel that copies
-   them into the conditional handles; then one IF node per branch, at
-   most one of them run, whose body is ``render.level_step`` at that
-   width on the level's buffers. A level whose live count is 0 runs no
-   body and leaves the count 0, so every later level is skipped too;
+2. for each level L from 1 to the limit, where the scene spawns: one
+   kernel, ``level_control_kernel`` (``ops/graph_cuda.Control``), that
+   reads the live count and chooses the level's branch among
+   ``render.level_branches`` (the widths R/16, R/4, R/2 and R where the
+   level packs, else the whole level), as ``render.level_predicates``
+   does: it writes the level's flags and its entry of the level log and
+   sets the conditional handles; then one IF node per branch, at most
+   one of them run, whose body is ``render.level_step`` at that width on
+   the level's buffers. A level whose live count is 0 runs no body and
+   leaves the count 0, so every later level is skipped too;
 3. the finish: the composed permutation of the packed levels undone,
    quantized if asked, into the tile buffer.
 
@@ -30,15 +32,16 @@ its level log into the frame's buffers. Nothing is read back until the
 frame crosses to the host (:meth:`TileProgram.to_host`), its level logs in
 the same sync.
 
-Each part (level 0, a level's predicates, each branch of each level, the
-finish) is captured by PyTorch as a graph of its own that keeps its
-``cudaGraph_t``, and ``ops/graph_cuda.TileGraph`` chains them, the
-branches as the bodies of IF nodes. The parts are captured the first time
-a tile runs (the finish and the tile graph once per ``quantize``): first
-each runs once eagerly on the program's side stream (K1's shared-memory
-attribute, cuBLAS and the sort's scratch initialise there); level 0 and
-the predicates commit their results, a branch commits nothing, since at a
-width narrower than the live count it computes wrong rays. Then each is
+Each part (level 0, each branch of each level, the finish) is captured
+by PyTorch as a graph of its own that keeps its ``cudaGraph_t``, and
+``ops/graph_cuda.TileGraph`` chains them, the branches as the bodies of
+IF nodes after each level's control kernel. The parts are captured the
+first time a tile runs (the finish and the tile graph once per
+``quantize``): first each runs once eagerly on the program's side stream
+(K1's shared-memory attribute, cuBLAS and the sort's scratch initialise
+there); level 0 and the finish commit their results, a branch commits
+nothing, since at a width narrower than the live count it computes wrong
+rays. Then each is
 captured, which runs nothing. Every tensor a part makes dies inside its
 capture, so all the parts share one memory pool.
 
@@ -54,17 +57,20 @@ a graph-safe generator would advance by every captured draw, run or not,
 and the eager loop could not follow it.
 
 The host does not see which branch ran, and replays run kernels that the
-Python launch counters of ``ops/mesh_cuda`` never see. So each body
-writes its width into the tile's level log on the device (-1: skipped,
-0: run whole, else the packed width), and each part records its K1 and
+Python launch counters of ``ops/mesh_cuda`` never see. So each level's
+control kernel writes the branch it chose into the tile's level log on
+the device (-1: skipped, 0: run whole, else the packed width), and each
+part records its K1 and
 K1b launches at capture (taken back off the counters: a capture launches
 nothing). :meth:`TileProgram.to_host` reads the logs with the frame,
 rebuilds ``levels`` and adds each part's launches once for every time it
 ran.
 
 On a CPU scene the program runs the same parts on the same buffers
-without capture: it computes the same flags and runs the body whose flag
-is set, reading the flags on the host (``render.taken_branch``). A card
+without capture: it computes the same flags (``render.level_predicates``)
+and runs the body whose flag is set, reading the flags on the host
+(``render.taken_branch``), and writes the level log from the branch
+taken. A card
 or a PyTorch without conditional nodes raises
 (``graph_cuda.check_support``); nothing falls back to a host-decided
 loop, to the eager loop or to the CPU.
@@ -210,10 +216,8 @@ class TileProgram:
             self.static, self.rows[level], self.live)}
 
     def _body(self, scene, level, width):
-        """Branch ``width`` of ``level``: its results by buffer name; its
-        width goes into the level log."""
+        """Branch ``width`` of ``level``: its results by buffer name."""
         rows = self.rows[level]
-        self.log[level].fill_(0 if width is None else width)
         o, d, w = (self._buf(k, (rows, 3), F32) for k in "odw")
         perm = (self._buf("perm", (self.tile,), torch.int64)
                 if self.tracks_perm else None)
@@ -231,12 +235,9 @@ class TileProgram:
 
     def _parts(self, scene, quantize):
         """The tile's parts in order: (key, function, whether its eager
-        warm-up commits: all but the branches), the branches of a level
-        after its predicates."""
+        warm-up commits: all but the branches)."""
         out = [(("level", 0), lambda: self._level0(scene), True)]
         for level in range(1, len(self.rows)):
-            out.append((("flags", level),
-                        lambda level=level: self._predicates(level), True))
             for width in self.branches[level]:
                 out.append(((level, width),
                             lambda level=level, width=width:
@@ -248,20 +249,22 @@ class TileProgram:
     # -- running -----------------------------------------------------------
     def _run_cpu(self, scene, quantize):
         """The tile on the CPU: the parts in order, a level's branch
-        chosen by its flags read on the host."""
+        chosen by its flags read on the host, its level log entry written
+        from the branch taken."""
         self._commit(self._level0(scene))
         for level in range(1, len(self.rows)):
             self._commit(self._predicates(level))
             k = R.taken_branch(self._flags(level))
-            if k is not None:
-                self._commit(self._body(scene, level,
-                                        self.branches[level][k]))
+            if k is not None:      # else level 0's -1 (skipped) stands
+                width = self.branches[level][k]
+                self.log[level].fill_(width or 0)
+                self._commit(self._body(scene, level, width))
         self._commit(self._finish(quantize))
 
     def _tile_graph(self, scene, quantize):
         """The tile graph of ``quantize``, built at first use: the parts
         not captured yet warmed up (on the side stream) and captured,
-        then chained."""
+        then chained, each level's branches after its control kernel."""
         if quantize in self.tiles:
             return self.tiles[quantize]
         from raytracer_tpu_torch.ops import graph_cuda
@@ -281,10 +284,10 @@ class TileProgram:
         cur.wait_stream(self.stream)
         chain = [self.graphs[("level", 0)][0]]
         for level in range(1, len(self.rows)):
-            chain.append(self.graphs[("flags", level)][0])
-            chain.append((self._flags(level),
-                          [self.graphs[(level, w)][0]
-                           for w in self.branches[level]]))
+            chain.append(graph_cuda.Control(
+                self.live, self.rows[level], self.branches[level],
+                self._flags(level), self.log[level],
+                [self.graphs[(level, w)][0] for w in self.branches[level]]))
         chain.append(self.graphs[("finish", quantize)][0])
         tg = self.tiles[quantize] = graph_cuda.TileGraph(chain)
         self.stats["capture_s"] += time.perf_counter() - t0
@@ -400,7 +403,6 @@ class TileProgram:
                 self._count(("level", 0))
                 self._levels.append((0, self.rows[0], None))
                 for level in range(1, len(self.rows)):
-                    self._count(("flags", level))
                     if log[level] < 0:
                         continue
                     width = log[level] or None

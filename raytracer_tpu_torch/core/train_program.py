@@ -15,20 +15,24 @@ node, as in ``core/tile_program.py`` for the frame. A
 ``parallel.train.render_loss_and_grad`` as two graph launches:
 
 1. the forward graph: level 0; then for each level L from 1 to the limit,
-   where the scene spawns, the flags of ``render.level_predicates(...,
-   dead=True)`` computed on the card from the live count (exactly one
-   set) and one IF node per branch of ``render.level_branches(...,
-   dead=True)``: the widths R/16, R/4, R/2 and R where the level packs,
-   else the whole level, and the dead level (``render.dead_step``), which
-   passes the image and ``perm`` through and writes zero-weight spawns
-   and a live count of 0. A body is ``render.level_step`` at its width on
-   level L's input buffers, its outputs copied into level L + 1's, and
-   writes its width into the level log. Then the loss (the MSE of
+   where the scene spawns, one kernel, ``level_control_kernel``
+   (``ops/graph_cuda.Control``), that chooses the level's branch on the
+   card from the live count, as ``render.level_predicates(...,
+   dead=True)`` does (exactly one set), writes the level's flags and its
+   entry of the level log and sets the handles of one IF node per branch
+   of ``render.level_branches(..., dead=True)``: the widths R/16, R/4,
+   R/2 and R where the level packs, else the whole level, and the dead
+   level (``render.dead_step``), which passes the image and ``perm``
+   through and writes zero-weight spawns and a live count of 0. A body
+   is ``render.level_step`` at its width on level L's input buffers, its
+   outputs copied into level L + 1's. Then the loss (the MSE of
    ``render_loss``) of the last level's image and its gradient with
    respect to that image;
 2. the backward graph: the parameters' gradient sums set to -0.0; then
-   for each level from the limit down to 1 an IF node per branch on the
-   flags that level's forward wrote, a body being the vjp of the forward
+   one kernel, ``backward_control_kernel`` (``ops/graph_cuda.Backward``),
+   that sets every level's IF handles from the flags the forward wrote;
+   then for each level from the limit down to 1 an IF node per branch,
+   a body being the vjp of the forward
    body of its width (a dead level's copies the image's gradient through
    and writes zero gradients for its other inputs, adding nothing to the
    sums); then level 0's vjp.
@@ -41,8 +45,8 @@ and the parameters the step reached are rebuilt.
 Every level has buffers of its own (its inputs, its jitter, the gradients
 of its inputs), because the backward of a level reads what its forward
 read, and the dead level lets the loss always read the last level's image.
-The parts (level 0, a level's predicates, every branch of every level
-forward and backward, the loss, the head of the backward) are captured
+The parts (level 0, every branch of every level forward and backward,
+the loss, the head of the backward) are captured
 up front, at the first forward, each as a PyTorch graph that keeps its
 ``cudaGraph_t`` (``keep_graph=True``), and chained by
 ``ops/graph_cuda.TileGraph``. First each part runs once eagerly on the
@@ -98,11 +102,12 @@ The update is not in a graph: ``train_step``'s SGD and a ``torch.optim``
 step run eagerly after the graphed gradient (a few launches per table).
 
 On a CPU scene the program runs the same parts on the same buffers
-without capture, choosing each level's body by its flags read on the host
-(``render.taken_branch``). A card or a PyTorch without conditional nodes
-raises (``graph_cuda.check_support``), and so does a capture or launch
-error; nothing falls back to a host-decided loop, to the eager step or to
-the CPU.
+without capture, choosing each level's body by its flags
+(``render.level_predicates``) read on the host (``render.taken_branch``)
+and writing the level log from the branch taken. A card or a PyTorch
+without conditional nodes raises (``graph_cuda.check_support``), and so
+does a capture or launch error; nothing falls back to a host-decided
+loop, to the eager step or to the CPU.
 """
 
 from __future__ import annotations
@@ -238,6 +243,9 @@ class TrainProgram:
                 self._put(("acc", k), torch.zeros_like(p))
             self._put(("log",), torch.zeros(len(self.level_rows),
                                             dtype=torch.int32, device=device))
+            for level, branches in self.branches.items():
+                self._put(("flags", level), torch.zeros(
+                    len(branches), dtype=torch.int32, device=device))
         self.log = self.bufs[("log",)]
         if self.capture:
             from raytracer_tpu_torch.ops import graph_cuda
@@ -348,11 +356,12 @@ class TrainProgram:
 
     def _fwd(self, level, width):
         """Forward body ``width`` of ``level``: its outputs (by output
-        name, with grad); its width goes into the level log (level 0
-        first marks every later level skipped, -1)."""
+        name, with grad). Level 0 writes the level log: 0 for itself, -1
+        (skipped) for every later level, whose control kernel (on the
+        CPU, :meth:`_forward_cpu`) writes its entry."""
         if level == 0:
             self.log.fill_(-1)
-        self.log[level].fill_(width or 0)
+            self.log[0].fill_(0)
         return self._outputs(level, width)
 
     def _fwd_commit(self, level):
@@ -492,14 +501,13 @@ class TrainProgram:
 
         t0 = time.perf_counter()
         keep, levels = not self.remat, range(1, self.end)
-        # warm-up (the graphs compute the step anew): level 0 and the
-        # predicates commit, and of a level's branches the widest, which
-        # holds every live ray, so that the next level warms up on real
-        # rays; the others only make their outputs' buffers
+        # warm-up (the graphs compute the step anew): level 0 commits, and
+        # of a level's branches the widest, which holds every live ray, so
+        # that the next level warms up on real rays; the others only make
+        # their outputs' buffers
         outs0 = self._fwd(0, None)
         self._fwd_commit(0)(outs0)
         for level in levels:
-            self._commit(self._predicates(level))
             *live, _ = self.branches[level]
             for width in live:
                 outs = self._fwd(level, width)
@@ -522,9 +530,6 @@ class TrainProgram:
         self._capture(("fwd", 0, None), lambda: self._fwd(0, None),
                       self._fwd_commit(0), keep)
         for level in levels:
-            self._capture(("flags", level),
-                          lambda level=level: self._predicates(level),
-                          self._commit)
             for width in self.branches[level]:
                 if width == R.DEAD:
                     self._capture(("fwd", level, width),
@@ -545,14 +550,17 @@ class TrainProgram:
 
         g = self.graphs
         fwd = [g[("fwd", 0, None)][0]]
-        bwd = [g[("head",)][0]]
         for level in levels:
-            fwd += [g[("flags", level)][0],
-                    (self._flags(level), [g[("fwd", level, w)][0]
-                                          for w in self.branches[level]])]
-        for level in reversed(levels):
-            bwd.append((self._flags(level), [g[("bwd", level, w)][0]
-                                             for w in self.branches[level]]))
+            fwd.append(graph_cuda.Control(
+                self.bufs[("live",)], self.level_rows[level],
+                self.branches[level], self._flags(level), self.log[level],
+                [g[("fwd", level, w)][0] for w in self.branches[level]]))
+        bwd = [g[("head",)][0]]
+        if levels:
+            bwd.append(graph_cuda.Backward(
+                [(self._flags(level), [g[("bwd", level, w)][0]
+                                       for w in self.branches[level]])
+                 for level in reversed(levels)]))
         fwd.append(g[("loss",)][0])
         bwd.append(g[("bwd", 0, None)][0])
         self.fwd_graph = graph_cuda.TileGraph(fwd)
@@ -567,14 +575,15 @@ class TrainProgram:
 
     def _forward_cpu(self):
         """The forward on the CPU: the parts in order, a level's body
-        chosen by its flags read on the host."""
+        chosen by its flags read on the host, its level log entry written
+        from the branch taken (-1 for the dead level)."""
         levels = range(1, self.end)
         for level in [0, *levels]:
             width = None
             if level:
                 self._commit(self._predicates(level))
-                self.graphs.setdefault(("flags", level), None)
                 width = self._taken(level)
+                self.log[level].fill_(-1 if width == R.DEAD else width or 0)
             self.graphs.setdefault(("fwd", level, width), None)
             if width == R.DEAD:
                 self._dead_commit(self._dead(level))
@@ -687,8 +696,7 @@ class TrainProgram:
             reached |= self.reached[("bwd", 0, None)]
             for level in range(1, self.end):
                 width = R.DEAD if log[level] < 0 else log[level] or None
-                self._count(("flags", level), ("fwd", level, width),
-                            ("bwd", level, width))
+                self._count(("fwd", level, width), ("bwd", level, width))
                 reached |= self.reached[("bwd", level, width)]
                 if width != R.DEAD:
                     self._levels.append((level, self.level_rows[level],

@@ -583,14 +583,37 @@ def test_graphed_step_is_two_launches_per_microbatch(remat, monkeypatch):
     assert float(grads["mat"].abs().sum()) > 0
 
 
+def _captured(fn, pool, side):
+    """``fn`` warmed up and captured on ``side`` into a graph that keeps
+    its ``cudaGraph_t``."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                       # warm-up
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        g.capture_begin(pool=pool)
+        fn()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return g
+
+
+def _marking_bodies(n, pool, side):
+    """``n`` captured bodies, body k adding k + 1 to its slot of ``out``
+    (int32 [n]) at each run."""
+    out = torch.zeros(n, dtype=torch.int32, device="cuda")
+    return out, [_captured(lambda k=k: out[k].add_(k + 1), pool, side)
+                 for k in range(n)]
+
+
 @pytest.mark.cuda
 def test_backward_level_runs_the_flagged_body():
     """A toy level of the train program's shape on the card: a forward
-    tile graph whose predicates part writes five flags (four packed widths
-    and the dead level) from a live count, and a backward tile graph whose
-    five IF bodies, each the captured vjp of a gather (``index_put_``'s
-    accumulate, as a level's backward), read those kept flags: exactly the
-    flagged body writes its gradient, launch after launch."""
+    tile graph whose level_control_kernel writes five flags (four packed
+    widths and the dead level) from a live count, and a backward tile
+    graph whose backward_control_kernel sets the handles of five IF
+    bodies, each the captured vjp of a gather (``index_put_``'s
+    accumulate, as a level's backward), from those kept flags: exactly
+    the flagged body writes its gradient, launch after launch."""
     _require_cuda()
     from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core import types as T
@@ -604,13 +627,11 @@ def test_backward_level_runs_the_flagged_body():
     assert n == GC.MAX_BRANCHES
     live = torch.zeros((), dtype=torch.int64, device="cuda")
     flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    log = torch.zeros(1, dtype=torch.int32, device="cuda")
     x = torch.rand((64, 3), device="cuda", requires_grad=True)
     idx = torch.randint(0, 64, (rows,), device="cuda")
     out = torch.zeros((n, 64, 3), device="cuda")
     pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-
-    def pred():
-        flags.copy_(R.level_predicates(st, rows, live, dead=True))
 
     def body(k):
         with torch.enable_grad():
@@ -618,25 +639,17 @@ def test_backward_level_runs_the_flagged_body():
             (g,) = torch.autograd.grad(y.sum(), x)
         out[k].copy_(g)
 
-    def captured(fn):
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()                                   # warm-up
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            g.capture_begin(pool=pool)
-            fn()
-            g.capture_end()
-        torch.cuda.current_stream().wait_stream(side)
-        return g
-
     # the parts outlive the tile graphs: their pool and memory are
     # what the graphs' kernels address
-    pred_part = captured(pred)
-    bodies = [captured(lambda k=k: body(k)) for k in range(n)]
-    fwd = GC.TileGraph([pred_part])
-    bwd = GC.TileGraph([(flags, bodies)])
+    _, noop = _marking_bodies(n, pool, side)
+    bodies = [_captured(lambda k=k: body(k), pool, side) for k in range(n)]
+    fwd = GC.TileGraph([GC.Control(live, rows, branches, flags, log[0],
+                                   noop)])
+    bwd = GC.TileGraph([GC.Backward([(flags, bodies)])])
+    before = GC.launch_counts()
     counts = torch.bincount(idx, minlength=64).float()[:, None].cpu()
-    for n_live in (0, 1, rows // 16, rows // 16 + 1, rows // 2, rows, 0, 300):
+    cases = (0, 1, rows // 16, rows // 16 + 1, rows // 2, rows, 0, 300)
+    for n_live in cases:
         live.fill_(n_live)
         out.zero_()
         fwd.launch()
@@ -648,44 +661,136 @@ def test_backward_level_runs_the_flagged_body():
         for j in range(n):
             want = counts * (j + 1) if j == k else torch.zeros(64, 1)
             assert torch.equal(got[j], want.expand(64, 3)), (n_live, j)
+    after = GC.launch_counts()
+    assert after["level_control"] == before["level_control"] + len(cases)
+    assert after["backward_control"] == (before["backward_control"]
+                                         + len(cases))
 
 
 @pytest.mark.cuda
 def test_tile_graph_runs_the_flagged_branch():
-    """graph_cuda.TileGraph on a toy level: four branches, each a captured
-    graph writing its mark; set_conditionals_kernel runs exactly the
-    branch whose flag is set, or none, launch after launch, against its
-    plain version (render.taken_branch of the same flags)."""
+    """graph_cuda.TileGraph on a toy level of four packed widths, each
+    branch a captured graph writing its mark: level_control_kernel runs
+    exactly the branch that the host's choice (render.taken_branch of
+    render.level_predicates) takes for the live count, or none, and
+    writes that choice's flags and log entry, launch after launch."""
     _require_cuda()
-    from raytracer_tpu_torch.core.render import taken_branch
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
     from raytracer_tpu_torch.ops import graph_cuda as GC
 
     GC.check_support()
-    out = torch.zeros(4, dtype=torch.int32, device="cuda")
+    st = T.SceneStatic(counts=(0, 0, 0, 0, 0, 25280))
+    rows = 16384
+    branches = R.level_branches(st, rows)
+    assert len(branches) == 4
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
     flags = torch.zeros(4, dtype=torch.int32, device="cuda")
+    log = torch.zeros(3, dtype=torch.int32, device="cuda")
     pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
-    bodies = []
-    for k in range(4):
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.stream(side):
-            g.capture_begin(pool=pool)
-            out[k].fill_(k + 1)
-            g.capture_end()
-        bodies.append(g)
-    tg = GC.TileGraph([(flags, bodies)])
-    before = GC.set_conditionals_launches
-    cases = [None, 0, 1, 2, 3, 2, None]
-    for k in cases:
-        flags.zero_()
+    out, bodies = _marking_bodies(4, pool, side)
+    tg = GC.TileGraph([GC.Control(live, rows, branches, flags, log[1],
+                                  bodies)])
+    before = GC.launch_counts()["level_control"]
+    cases = [0, 1, rows // 4, rows // 2, rows, rows // 2 + 1, 0]
+    for n_live in cases:
+        live.fill_(n_live)
         out.zero_()
-        if k is not None:
-            flags[k] = 1
+        log.fill_(7)
         tg.launch()
-        got = out.cpu()
-        want = taken_branch(flags.cpu())
-        assert want == k
-        assert got.tolist() == [j + 1 if j == k else 0 for j in range(4)]
-    assert GC.set_conditionals_launches == before + len(cases)
+        want = R.level_predicates(st, rows, torch.tensor(n_live))
+        k = R.taken_branch(want)
+        assert torch.equal(flags.cpu(), want)
+        assert out.cpu().tolist() == [j + 1 if j == k else 0
+                                      for j in range(4)]
+        assert log.cpu().tolist() == [7, -1 if k is None else branches[k],
+                                      7]
+    assert GC.launch_counts()["level_control"] == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True], ids=["live", "dead"])
+@pytest.mark.parametrize("kind", ["mesh", "spheres"])
+def test_level_control_kernel_matches_plain(kind, dead):
+    """level_control_kernel against its plain version
+    (graph_cuda.level_control_plain) for every live count from 0 to
+    4,096 on a level that packs and one that does not, with and without
+    the dead level: the flags, the log entry and the one body that ran
+    (none when the plain flags are all 0), each launch's results copied
+    on the card and read once."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import types as T
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+
+    GC.check_support()
+    counts = (0, 0, 0, 0, 0, 25280) if kind == "mesh" else (3, 1, 0, 0, 0, 0)
+    st = T.SceneStatic(counts=counts)
+    rows = 4096
+    branches = R.level_branches(st, rows, dead=dead)
+    n = len(branches)
+    live = torch.zeros((), dtype=torch.int64, device="cuda")
+    flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+    log = torch.zeros(1, dtype=torch.int32, device="cuda")
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    out, bodies = _marking_bodies(n, pool, side)
+    tg = GC.TileGraph([GC.Control(live, rows, branches, flags, log[0],
+                                  bodies)])
+    lives = torch.arange(rows + 1, device="cuda")
+    got_flags = torch.empty((rows + 1, n), dtype=torch.int32, device="cuda")
+    got_log = torch.empty(rows + 1, dtype=torch.int32, device="cuda")
+    got_out = torch.empty((rows + 1, n), dtype=torch.int32, device="cuda")
+    for i in range(rows + 1):
+        live.copy_(lives[i])
+        out.zero_()
+        tg.launch()
+        got_flags[i].copy_(flags)
+        got_log[i].copy_(log[0])
+        got_out[i].copy_(out)
+    want_flags, want_log = GC.level_control_plain(
+        torch.arange(rows + 1), rows, GC.branch_codes(branches))
+    assert torch.equal(got_flags.cpu(), want_flags)
+    assert torch.equal(got_log.cpu(), want_log)
+    marks = torch.arange(1, n + 1, dtype=torch.int32)
+    assert torch.equal(got_out.cpu(), want_flags * marks)
+    assert int(want_flags.sum(-1).max()) == 1
+
+
+@pytest.mark.cuda
+def test_backward_control_sets_every_level():
+    """backward_control_kernel on four levels of five branches each: for
+    20 random settings of exclusive flags (at most one set a level) it
+    runs, level after level, exactly the flagged bodies; one launch a
+    graph launch."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import graph_cuda as GC
+
+    GC.check_support()
+    pool, side = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    levels, flags = [], []
+    for _ in range(4):
+        f = torch.zeros(GC.MAX_BRANCHES, dtype=torch.int32, device="cuda")
+        out, bodies = _marking_bodies(GC.MAX_BRANCHES, pool, side)
+        levels.append((f, bodies, out))
+        flags.append(f)
+    tg = GC.TileGraph([GC.Backward([(f, b) for f, b, _ in levels])])
+    rng = np.random.default_rng(13)
+    before = GC.launch_counts()["backward_control"]
+    marks = torch.arange(1, GC.MAX_BRANCHES + 1, dtype=torch.int32)
+    for _ in range(20):
+        want = []
+        for f, _, out in levels:
+            k = int(rng.integers(-1, GC.MAX_BRANCHES))
+            row = torch.zeros(GC.MAX_BRANCHES, dtype=torch.int32)
+            if k >= 0:
+                row[k] = 1
+            f.copy_(row)
+            out.zero_()
+            want.append(row * marks)
+        tg.launch()
+        for (_, _, out), w in zip(levels, want):
+            assert torch.equal(out.cpu(), w)
+    assert GC.launch_counts()["backward_control"] == before + 20
 
 
 @pytest.mark.cuda
