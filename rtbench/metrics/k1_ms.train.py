@@ -1,0 +1,21 @@
+"""Device milliseconds a train of the mesh kernels K1 (walk and finish)
+and K1b in the profiled trains; nothing where the trains ran none, or
+where the profiler's K1 and K1b events differ from the launch counters."""
+
+import sys
+
+from rtbench.metrics._kernels import K1_KERNELS, counted_k1, kernel_sum
+
+
+def read(layer):
+    p = layer.get("profile")
+    if layer["kind"] != "train" or not p:
+        return None
+    us, count = kernel_sum(p, K1_KERNELS)
+    if count == 0:
+        return None
+    if not counted_k1(p):
+        print("k1_ms.train: the profiler's K1/K1b events differ from the "
+              f"launch counters {p['counters']}", file=sys.stderr)
+        return None
+    return us / 1e3 / p["units"]

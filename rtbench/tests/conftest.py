@@ -1,0 +1,15 @@
+"""The benchmark's own tests: ``python -m pytest rtbench/tests -q`` from
+the repo's root. Tests marked ``cuda`` skip themselves without a card."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; the test skips itself when there is none")
