@@ -674,12 +674,12 @@ def graph_ms(fn, calls=20, reps=5):
 
     fn()
     torch.cuda.synchronize()
-    before = MC.launch_counts()
+    before = MC.host_counts()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for _ in range(calls):
             fn()
-    MC.add_launches({k: v - before[k] for k, v in MC.launch_counts().items()},
+    MC.add_launches({k: v - before[k] for k, v in MC.host_counts().items()},
                     -1)
     g.replay()
     torch.cuda.synchronize()
@@ -2562,13 +2562,13 @@ def captured_alone(mc, call):
         mc.mesh_nearest(o, d, call["planes"], call["bb"], **kw)
         mc.live_supergroups(o, inv, bb_super, cap)
     torch.cuda.current_stream().wait_stream(side)
-    before = mc.launch_counts()
+    before = mc.host_counts()
     g_k1, g_pre = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
     with torch.cuda.graph(g_k1):
         k1_out = mc.mesh_nearest(o, d, call["planes"], call["bb"], **kw)
     with torch.cuda.graph(g_pre):
         pre_out = mc.live_supergroups(o, inv, bb_super, cap)
-    mc.add_launches({k: v - before[k] for k, v in mc.launch_counts().items()},
+    mc.add_launches({k: v - before[k] for k, v in mc.host_counts().items()},
                     -1)
     max_err = pre_err = 0.0
     for seed in (1, 2):
@@ -3011,8 +3011,8 @@ def host_breakdown(reps=3):
         inv, consts = R.camera_consts(cam, scene.device)
         t1 = time.perf_counter()
         with torch.no_grad():
-            frame = prog.frame(scene, inv, consts, cam.hsize, idx_tiles,
-                               True, None)
+            prog.set_camera(inv, consts, cam.hsize)
+            frame = prog.frame(scene, idx_tiles, True, None)
         t2 = time.perf_counter()
         img = prog.to_host(frame).numpy()[:n]
         t3 = time.perf_counter()

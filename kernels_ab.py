@@ -22,6 +22,13 @@ recorded inputs:
   texels (chip_smoke.py's 7e), forward and backward;
 * K1b on every K1 call of dragons_equiv's middle tile.
 
+Where DIR holds ``mesh_nearest.cu``, K1's walk (``mesh_nearest_launch``:
+its merge words' preset, the walk and the finish) on every K1 call of
+dragons_equiv's middle tile, on the pre-pass lists of the current K1b,
+with its test counter where a build has one (as ``ops/mesh_cuda`` passes
+it): the two must give the same t, index, u and v bit for bit; and the
+sums over the tile's calls.
+
 Each call is timed as 20 calls captured in one CUDA graph and replayed
 (ms per call, the host out of the figure), in turns old, new, new, old;
 beside it the PyTorch call for the same function (``table[idx]``,
@@ -317,6 +324,102 @@ def control_ab(old_dir, res):
     print(json.dumps(out["toy_backward"]), flush=True)
 
 
+def _walk_binding(src, lib):
+    """Binds ``mesh_nearest_launch`` of the build of ``src``: with the
+    trailing test counter where the source has one."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    counted = "u64* tests) {" in src.read_text()
+    lib.mesh_nearest_launch.argtypes = [
+        p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, p,
+        *([p] if counted else [])]
+    lib.mesh_nearest_launch.restype = i
+    return lib, counted
+
+
+_COUNTERS = {}
+
+
+def _counter(dev):
+    """A test counter on ``dev``, made outside the timed captures."""
+    import torch
+
+    if dev not in _COUNTERS:
+        _COUNTERS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _COUNTERS[dev]
+
+
+def walk(binding, o, d, inv, cap, lists, planes, bb_chunk, any_hit):
+    """K1's walk of one build on the pre-pass's ``lists``: (t, idx, u, v),
+    counting its tests where the build has a test counter."""
+    import torch
+
+    lib, counted = binding
+    ids, cnt, ent = lists
+    r = o.shape[0]
+    t = torch.empty(r, device=o.device)
+    idx = torch.empty(r, dtype=torch.int32, device=o.device)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    best = torch.empty(r, dtype=torch.int64, device=o.device)
+    err = lib.mesh_nearest_launch(
+        o.data_ptr(), d.data_ptr(), inv.data_ptr(), cap.data_ptr(),
+        ids.data_ptr(), cnt.data_ptr(), ent.data_ptr(), ids.shape[1],
+        bb_chunk.data_ptr(), bb_chunk.shape[1], planes.data_ptr(),
+        best.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+        v.data_ptr(), r, int(any_hit),
+        torch.cuda.current_stream().cuda_stream,
+        *((_counter(o.device).data_ptr(),) if counted else ()))
+    if err:
+        raise RuntimeError(f"mesh_nearest_launch: CUDA error {err}")
+    return t, idx, u, v
+
+
+def walk_ab(old_dir, res):
+    """K1's walk, old against new (see the module docstring): fills
+    ``res["walk"]`` and ``res["walk_total"]``."""
+    import torch
+
+    import chip_smoke as CS
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.ops import mesh_cuda as MC
+    from raytracer_tpu_torch.scene import build_scene
+
+    sides = {}
+    for side, src in (("old", old_dir), ("new", HERE / "raytracer_tpu_torch"
+                                         / "csrc")):
+        path, _ = MC.nvcc_build(src / "mesh_nearest.cu", MC.NVCC_FLAGS,
+                                f"mesh_nearest_{side}")
+        sides[side] = _walk_binding(src / "mesh_nearest.cu",
+                                    ctypes.CDLL(str(path)))
+    items, cam = scenes.dragons_equiv()
+    dragons = build_scene(items, device=torch.device("cuda"))
+    res["walk"] = []
+    for i, call in enumerate(CS.record_tile(dragons, cam)):
+        d = -call["d"] if call["reverse"] else call["d"]
+        inv = MC.inverse_dirs(d).contiguous()
+        r = call["o"].shape[0]
+        cap = (torch.full((r,), float("inf"), device="cuda")
+               if call["t_init"] is None else call["t_init"])
+        lists = MC.live_supergroups(call["o"], inv, call["bb"][1],
+                                    call["t_init"])
+        args = (call["o"], d, inv, cap, lists, call["planes"],
+                call["bb"][0], call["any_hit"])
+        out = {s: walk(sides[s], *args) for s in sides}
+        if not all(torch.equal(a, b) for a, b in zip(out["old"],
+                                                     out["new"])):
+            raise AssertionError(f"dragons tile call {i}: walks differ")
+        row = dict(call=i, mode=CS.mode_of(call), rays=r,
+                   live=int(lists[1].sum()),
+                   **turns(lambda: walk(sides["old"], *args),
+                           lambda: walk(sides["new"], *args), CS.graph_ms))
+        res["walk"].append(row)
+        print(json.dumps(row), flush=True)
+    old = sum(row["old_ms"] for row in res["walk"])
+    new = sum(row["new_ms"] for row in res["walk"])
+    res["walk_total"] = dict(calls=len(res["walk"]), old_ms=old, new_ms=new,
+                             new_over_old=new / old)
+    print(json.dumps(res["walk_total"]), flush=True)
+
+
 def turns(old, new, timer):
     """old, new, new, old: each side's two times and their mean."""
     t = [timer(f) for f in (old, new, new, old)]
@@ -462,6 +565,8 @@ def main(argv=None):
     if all((old_dir / f).exists() for f in ("table_gather.cu",
                                             "mesh_nearest.cu")):
         gather_ab(old_dir, res)
+    if (old_dir / "mesh_nearest.cu").exists():
+        walk_ab(old_dir, res)
     elif "control" not in res:
         print(f"kernels_ab: {old_dir} holds no earlier source",
               file=sys.stderr)

@@ -70,6 +70,7 @@ from raytracer_tpu_torch.core import intersect as I
 from raytracer_tpu_torch.core import shading as SH
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.patterns import pattern_color
+from raytracer_tpu_torch.utils import profiling as P
 
 
 def shadowed(scene: T.Scene, points, light_pos):
@@ -785,33 +786,45 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
     same frame bit for bit. The frame crosses to the host once.
 
     Matmuls and convolutions are held to full f32 (:func:`full_f32`).
+
+    With the span recorder on (``utils/profiling``) a frame records the
+    span ``frame`` and its phases: ``frame.prepare`` (everything before the
+    first tile's launch) and ``frame.scatter``, and through the tile
+    program ``frame.capture`` (its first use), ``frame.enqueue``,
+    ``frame.wait`` (the host blocked on the card) and ``frame.settle``
+    (the level logs read).
     """
-    full_f32()
-    device = scene.device
-    if tile_rays is None:
-        tile_rays = pick_tile_rays(scene.static)
-    n = camera.vsize * camera.hsize
-    tile = min(tile_rays, n)
-    order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile, device)
-    inv, consts = camera_consts(camera, device)
-    limit = scene.static.recursion_limit
-    if draws_jitter(scene.static):
-        generator = _seeded(generator, device)
-    with torch.no_grad():
-        if graphs:
-            from raytracer_tpu_torch.core.tile_program import program_for
-            prog = program_for(scene, tile, limit)
-            frame = prog.to_host(prog.frame(
-                scene, inv, consts, camera.hsize, idx_tiles, quantize,
-                generator))
-        else:
-            outs = []
-            for idx in idx_tiles:
-                o, d = _primary_rays(inv, consts, idx, camera.hsize)
-                c = color_at(scene, o, d, limit, generator)
-                outs.append(quantize_u8(c) if quantize else c)
-            frame = torch.cat(outs).cpu()
-        img = frame.numpy()[:n]
-    out = np.empty_like(img)
-    out[order] = img
-    return out.reshape(camera.vsize, camera.hsize, 3)
+    with P.span("frame"):
+        with P.span("frame.prepare"):
+            full_f32()
+            device = scene.device
+            if tile_rays is None:
+                tile_rays = pick_tile_rays(scene.static)
+            n = camera.vsize * camera.hsize
+            tile = min(tile_rays, n)
+            order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile,
+                                            device)
+            inv, consts = camera_consts(camera, device)
+            limit = scene.static.recursion_limit
+            if draws_jitter(scene.static):
+                generator = _seeded(generator, device)
+            if graphs:
+                from raytracer_tpu_torch.core.tile_program import program_for
+                prog = program_for(scene, tile, limit)
+                prog.set_camera(inv, consts, camera.hsize)
+        with torch.no_grad():
+            if graphs:
+                frame = prog.to_host(prog.frame(scene, idx_tiles, quantize,
+                                                generator))
+            else:
+                outs = []
+                for idx in idx_tiles:
+                    o, d = _primary_rays(inv, consts, idx, camera.hsize)
+                    c = color_at(scene, o, d, limit, generator)
+                    outs.append(quantize_u8(c) if quantize else c)
+                frame = torch.cat(outs).cpu()
+        with P.span("frame.scatter"):
+            img = frame.numpy()[:n]
+            out = np.empty_like(img)
+            out[order] = img
+            return out.reshape(camera.vsize, camera.hsize, 3)

@@ -78,12 +78,11 @@ loop, to the eager loop or to the CPU.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from raytracer_tpu_torch.core import render as R
 from raytracer_tpu_torch.ops import mesh_cuda as MC
+from raytracer_tpu_torch.utils import profiling as P
 
 F32 = torch.float32
 
@@ -120,7 +119,8 @@ class TileProgram:
 
     ``stats``, counted since the program was made: ``captured`` parts
     (graphs), of them ``bodies`` (conditional bodies), ``capture_s``
-    (seconds spent warming up, capturing and instantiating), ``replays``
+    (seconds spent warming up, capturing and instantiating: the clock of
+    the ``frame.capture`` span), ``replays``
     (tile graph launches) and ``syncs`` (host reads of the card: one per
     frame, :meth:`to_host`). ``frame_stats``: ``tiles``,
     ``replays`` and ``syncs`` of the last frame. ``levels``: (level, rays,
@@ -268,33 +268,36 @@ class TileProgram:
         if quantize in self.tiles:
             return self.tiles[quantize]
         from raytracer_tpu_torch.ops import graph_cuda
-        t0 = time.perf_counter()
-        parts = [p for p in self._parts(scene, quantize)
-                 if p[0] not in self.graphs]
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            for _, fn, commits in parts:
-                outs = fn()
-                if commits:
-                    self._commit(outs)
-                del outs
-        for key, fn, _ in parts:
-            self._capture(key, fn)
-        cur.wait_stream(self.stream)
-        chain = [self.graphs[("level", 0)][0]]
-        for level in range(1, len(self.rows)):
-            chain.append(graph_cuda.Control(
-                self.live, self.rows[level], self.branches[level],
-                self._flags(level), self.log[level],
-                [self.graphs[(level, w)][0] for w in self.branches[level]]))
-        chain.append(self.graphs[("finish", quantize)][0])
-        tg = self.tiles[quantize] = graph_cuda.TileGraph(chain)
-        self.stats["capture_s"] += time.perf_counter() - t0
+        with P.timed("frame.capture") as sp:
+            parts = [p for p in self._parts(scene, quantize)
+                     if p[0] not in self.graphs]
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with P.span("capture.warmup"), torch.cuda.stream(self.stream):
+                for _, fn, commits in parts:
+                    outs = fn()
+                    if commits:
+                        self._commit(outs)
+                    del outs
+            with P.span("capture.record"):
+                for key, fn, _ in parts:
+                    self._capture(key, fn)
+            cur.wait_stream(self.stream)
+            with P.span("capture.chain"):
+                chain = [self.graphs[("level", 0)][0]]
+                for level in range(1, len(self.rows)):
+                    chain.append(graph_cuda.Control(
+                        self.live, self.rows[level], self.branches[level],
+                        self._flags(level), self.log[level],
+                        [self.graphs[(level, w)][0]
+                         for w in self.branches[level]]))
+                chain.append(self.graphs[("finish", quantize)][0])
+                tg = self.tiles[quantize] = graph_cuda.TileGraph(chain)
+        self.stats["capture_s"] += sp.seconds
         return tg
 
     def _capture(self, key, fn):
-        before = MC.launch_counts()
+        before = MC.host_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         self._capturing = True
         try:
@@ -306,7 +309,7 @@ class TileProgram:
                     graph.capture_end()
         finally:
             self._capturing = False
-        counts = {k: v - before[k] for k, v in MC.launch_counts().items()}
+        counts = {k: v - before[k] for k, v in MC.host_counts().items()}
         MC.add_launches(counts, -1)
         self.graphs[key] = (graph, counts)
         self.stats["captured"] += 1
@@ -359,13 +362,18 @@ class TileProgram:
         done.record()
         self._pending.append((host, quantize, done))
 
-    def frame(self, scene, inv, consts, hsize, idx_tiles, quantize: bool,
-              generator):
+    def frame(self, scene, idx_tiles, quantize: bool, generator):
         """Enqueues every tile of ``idx_tiles`` [n_tiles, tile] of a frame
-        ``hsize`` pixels wide into one frame buffer on the device, returned
-        as [n_tiles * tile, 3]: one tile graph launch per tile, no read of
-        the card. Read it through :meth:`to_host`."""
-        self.set_camera(inv, consts, hsize)
+        into one frame buffer on the device, returned as [n_tiles * tile,
+        3]: one tile graph launch per tile, no read of the card, with the
+        camera and the frame's width of :meth:`set_camera`. Read it through
+        :meth:`to_host`.
+
+        With the span recorder on, the loop is the span
+        ``frame.enqueue``, and on the card a pair of timing events, one
+        before the first tile's work and one after the frame's last copy,
+        gives the open root span the frame's device time
+        (``attrs["device_ms"]``, read at :meth:`to_host`'s sync)."""
         self.frame_stats = dict(tiles=len(idx_tiles), replays=0, syncs=0)
         out = self._buf("frame", (len(idx_tiles), self.tile, 3),
                         torch.uint8 if quantize else F32)
@@ -373,11 +381,20 @@ class TileProgram:
                          torch.int32)
         tile = self._buf("tile", (self.tile, 3),
                          torch.uint8 if quantize else F32)
-        for ti, idx in enumerate(idx_tiles):
-            self._enqueue(scene, idx, generator, quantize)
-            out[ti].copy_(tile)
-            logs[ti].copy_(self.log)
-        self._send_logs(logs, quantize)
+        with P.span("frame.enqueue"):
+            timing = self.capture and P.enabled()
+            if timing:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            for ti, idx in enumerate(idx_tiles):
+                self._enqueue(scene, idx, generator, quantize)
+                out[ti].copy_(tile)
+                logs[ti].copy_(self.log)
+            if timing:
+                end.record()
+                P.device_span(start, end)
+            self._send_logs(logs, quantize)
         return out.reshape(-1, 3)
 
     def to_host(self, t):
@@ -385,10 +402,13 @@ class TileProgram:
         it on the device) on the host: the frame's one sync, which also
         brings its level logs. Rebuilds ``levels`` from the logs and adds
         the launches of the parts that ran to the counters."""
-        out = t.cpu()
+        with P.span("frame.wait"):
+            out = t.cpu()
         self.stats["syncs"] += 1
         self.frame_stats["syncs"] += 1
-        self.settle()
+        with P.span("frame.settle"):
+            self.settle()
+            P.resolve_device_spans()
         return out
 
     def settle(self):

@@ -113,13 +113,13 @@ loop, to the eager step or to the CPU.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 
 from raytracer_tpu_torch.core import render as R
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.ops import mesh_cuda as MC
+from raytracer_tpu_torch.utils import profiling as P
 
 F32 = torch.float32
 DIFF = ("img", "o", "d", "w")      # a level's differentiable inputs
@@ -190,7 +190,8 @@ class TrainProgram:
 
     ``stats``, counted since the program was made: ``captured`` parts, of
     them conditional ``bodies``, seconds spent warming up, capturing and
-    chaining them (``capture_s``), graph launches (``replays``: two per
+    chaining them (``capture_s``, the clock of the ``train.build``
+    span), graph launches (``replays``: two per
     microbatch) and host ``syncs`` (one per step, :meth:`settle`).
     ``levels``: (level, rays, width) of every level each microbatch of the
     last step ran, microbatch after microbatch, read from the level logs
@@ -472,7 +473,7 @@ class TrainProgram:
         """Captures ``fn`` with its results committed (a graph that keeps
         its ``cudaGraph_t``), in a memory pool of its own with ``keep``,
         whose captured outputs are then kept; records its launches."""
-        before = MC.launch_counts()
+        before = MC.host_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         pool = self.pool
         if keep:
@@ -488,7 +489,7 @@ class TrainProgram:
                 graph.capture_end()
         finally:
             self._capturing = False
-        counts = {k: v - before[k] for k, v in MC.launch_counts().items()}
+        counts = {k: v - before[k] for k, v in MC.host_counts().items()}
         MC.add_launches(counts, -1)
         self.graphs[key] = (graph, counts, outs if keep else None)
         self.stats["captured"] += 1
@@ -497,10 +498,17 @@ class TrainProgram:
     def _build(self):
         """Warms up, captures and chains every part (on the side stream):
         the forward and the backward graph."""
-        from raytracer_tpu_torch.ops import graph_cuda
+        levels = range(1, self.end)
+        with P.timed("train.build") as sp:
+            with P.span("capture.warmup"):
+                self._warm_up(levels)
+            with P.span("capture.record"):
+                self._capture_parts(levels)
+            with P.span("capture.chain"):
+                self._chain(levels)
+        self.stats["capture_s"] += sp.seconds
 
-        t0 = time.perf_counter()
-        keep, levels = not self.remat, range(1, self.end)
+    def _warm_up(self, levels):
         # warm-up (the graphs compute the step anew): level 0 commits, and
         # of a level's branches the widest, which holds every live ray, so
         # that the next level warms up on real rays; the others only make
@@ -527,6 +535,8 @@ class TrainProgram:
         self._commit(self._bwd(0, None, None if self.remat else outs0))
         del outs0
 
+    def _capture_parts(self, levels):
+        keep = not self.remat
         self._capture(("fwd", 0, None), lambda: self._fwd(0, None),
                       self._fwd_commit(0), keep)
         for level in levels:
@@ -548,6 +558,9 @@ class TrainProgram:
                               lambda level=level, width=width:
                               self._bwd_body(level, width), self._commit)
 
+    def _chain(self, levels):
+        from raytracer_tpu_torch.ops import graph_cuda
+
         g = self.graphs
         fwd = [g[("fwd", 0, None)][0]]
         for level in levels:
@@ -565,7 +578,6 @@ class TrainProgram:
         bwd.append(g[("bwd", 0, None)][0])
         self.fwd_graph = graph_cuda.TileGraph(fwd)
         self.bwd_graph = graph_cuda.TileGraph(bwd)
-        self.stats["capture_s"] += time.perf_counter() - t0
 
     # -- running -----------------------------------------------------------
     def _taken(self, level):
@@ -605,6 +617,14 @@ class TrainProgram:
             self._commit(self._dead_bwd(level) if width == R.DEAD
                          else self._bwd(level, width, self._kept.get(level)))
         self._kept.clear()
+
+    def timing_event(self):
+        """A timing CUDA event recorded on the program's stream after the
+        caller's work so far (the caller's later work waits for it)."""
+        event = torch.cuda.Event(enable_timing=True)
+        with self._side():
+            event.record()
+        return event
 
     def load(self, params: dict):
         """Copies the step's parameter values into the program's."""

@@ -68,7 +68,14 @@
 // 5. Empty boxes. Padding chunks carry min > max; the gate tests lo <= hi
 //    on each axis, so they are never live. Their triangles never hit
 //    (det_eps = +inf), so only the tests counted drop.
-// 6. The pre-pass (live_supergroups_kernel): exactly the ids, counts and
+// 6. Count the tests on the card. Where the launch passes a counter, each
+//    thread counts 32 tests for each 32-triangle group it enters while its
+//    ray is live (and, in any-hit, not yet found): the ray x triangle
+//    tests the per-ray gates let through. A warp sums its threads' counts
+//    and adds them to the counter once, at the end, with one atomic; a
+//    graph replay counts by itself. Without a counter only a register add
+//    a group remains.
+// 7. The pre-pass (live_supergroups_kernel): exactly the ids, counts and
 //    entries of the torch version's stable sort, in one launch instead of
 //    about 15. It does little work (a 16,384-ray call on dragons_equiv's
 //    130 supergroups: 2.1M slab tests of about 20 operations, 0.6 us at
@@ -157,6 +164,7 @@ struct WalkArgs {
   const float* bb;         // [6, n_chunks]
   const float* planes;     // [n_chunks, N_PLANES, CHUNK]
   u64* best;               // [R] merge words, preset to all ones
+  u64* tests;              // [1] gated tests, added to; null: not counted
   int n_super;
   int n_chunks;
   int slices;
@@ -204,6 +212,7 @@ mesh_walk_kernel(const WalkArgs a) {
   // (hits at t == cap still submit; mesh_finish_kernel reports them +inf)
   u64 bw = (static_cast<u64>(__float_as_uint(cap)) << 32) | 0xffffffffull;
   bool found = false;   // any-hit: a hit below the cap is known
+  unsigned tests = 0;   // ray x triangle tests entered (step 6)
 
   if (threadIdx.x == 0) {
     mbar_init(&full[0]);
@@ -291,6 +300,7 @@ mesh_walk_kernel(const WalkArgs a) {
       bool improved = false;
       for (int i0 = 0; i0 < STAGE; i0 += 32) {
         if (ANY_HIT && __all_sync(FULL, found || !live)) break;
+        tests += (live && !found) ? 32u : 0u;
 #pragma unroll 4
         for (int i = i0; i < i0 + 32; ++i) {
           const float p1x = tri[0 * STAGE + i], p1y = tri[1 * STAGE + i],
@@ -346,6 +356,11 @@ mesh_walk_kernel(const WalkArgs a) {
     phase ^= 1u << stage;
     stage ^= 1;
     cur = nxt;
+  }
+  if (a.tests) {
+    const unsigned warp_tests = __reduce_add_sync(FULL, tests);
+    if ((threadIdx.x & 31) == 0 && warp_tests)
+      atomicAdd(a.tests, static_cast<u64>(warp_tests));
   }
 }
 
@@ -526,19 +541,20 @@ extern "C" int mesh_nearest_slices(int n_rays) {
 }
 
 // K1: presets the merge words, walks (subtile, slice) CTAs, unpacks.
+// tests: a device counter the walk adds its gated tests to, or null.
 extern "C" int mesh_nearest_launch(
     const float* o, const float* d, const float* inv_d, const float* cap,
     const int32_t* ids, const int32_t* cnt, const float* ent, int n_super,
     const float* bb_chunk, int n_chunks, const float* planes, u64* best,
     float* t_out, int32_t* idx_out, float* u_out, float* v_out, int n_rays,
-    int any_hit, void* stream) {
+    int any_hit, void* stream, u64* tests) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_sub = n_rays / RT;
   if (n_sub == 0) return 0;
   cudaError_t e = cudaMemsetAsync(best, 0xff, sizeof(u64) * n_rays, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const WalkArgs a{o, d, inv_d, cap, ids, cnt, ent, bb_chunk, planes, best,
-                   n_super, n_chunks, walk_slices(n_sub)};
+                   tests, n_super, n_chunks, walk_slices(n_sub)};
   const int grid = n_sub * a.slices;
   const int smem = 2 * N_PLANES * STAGE * (int)sizeof(float);
   if (any_hit)

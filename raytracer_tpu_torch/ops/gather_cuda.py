@@ -107,11 +107,25 @@ def gather_backward_plain(grad, idx, g):
     return out.reshape((g, *rest))
 
 
+def forward_bytes(n, g, row_bytes, index_bytes):
+    """The bytes a forward call must move: its ``n`` indices and its table
+    of ``g`` rows read once, its ``n`` rows written once."""
+    return n * index_bytes + (n + g) * row_bytes
+
+
+def backward_bytes(n, g, k, index_bytes):
+    """The bytes a backward call must move: its ``n`` indices and incoming
+    f32 rows of ``k`` values read once, the table's f32 gradient of ``g``
+    rows written once."""
+    return n * index_bytes + (n + g) * k * 4
+
+
 def gather_forward(table, idx, out=None):
     """The forward kernel: ``table[idx]``, an exact copy of rows of any
     element type, for a CUDA table and int32 or int64 indices (counted in
-    ``LAUNCHES["gather"]``). ``out``: where to write, a contiguous tensor of
-    the result's shape and type at any address (by default a new one)."""
+    ``LAUNCHES["gather"]``, its bytes in ``LAUNCHES["gather_bytes"]``).
+    ``out``: where to write, a contiguous tensor of the result's shape and
+    type at any address (by default a new one)."""
     g = table.shape[0]
     idx = _index(idx, g)
     if table.device != idx.device or table.device.type != "cuda":
@@ -140,6 +154,8 @@ def gather_forward(table, idx, out=None):
         torch.cuda.current_stream(table.device).cuda_stream)
     _raise_on(err, "table_gather")
     LAUNCHES["gather"] += 1
+    LAUNCHES["gather_bytes"] += forward_bytes(n, g, row_bytes,
+                                              idx.element_size())
     return out
 
 
@@ -147,8 +163,8 @@ def gather_backward(grad, idx, g):
     """The backward kernels: [g, *rest] f32, the rows of ``grad``
     [*idx, *rest] f32 summed by index, by the route the table's size picks
     (``csrc/table_gather.cu``); each kernel launched is counted in
-    :data:`LAUNCHES`. Deterministic: the same inputs give the same
-    bits."""
+    :data:`LAUNCHES`, the call's bytes in ``LAUNCHES["gather_bytes"]``.
+    Deterministic: the same inputs give the same bits."""
     idx = _index(idx, g)
     rest = grad.shape[idx.dim():]
     if grad.dtype != torch.float32 or grad.device != idx.device \
@@ -179,14 +195,17 @@ def gather_backward(grad, idx, g):
     for key, count in zip(BACKWARD_KERNELS, launched):
         LAUNCHES[key] += count
     _raise_on(err, "table_gather backward")
+    LAUNCHES["gather_bytes"] += backward_bytes(n, g, k, idx.element_size())
     return out
 
 
 # the kernels' launch counters, by kernel: the forward's, then the
-# backward's in the order of the C entry's counts
+# backward's in the order of the C entry's counts; and the bytes the calls
+# must move (forward_bytes, backward_bytes), which a CUDA graph records at
+# capture and adds at each replay as it does the launches
 BACKWARD_KERNELS = ("gather_grad", "gather_scale", "gather_add",
                     "gather_finish")
-LAUNCHES = dict.fromkeys(("gather", *BACKWARD_KERNELS), 0)
+LAUNCHES = dict.fromkeys(("gather", *BACKWARD_KERNELS, "gather_bytes"), 0)
 
 
 class TableGather(torch.autograd.Function):
@@ -247,7 +266,7 @@ def launch_counts() -> dict:
     """The kernels' launch counters (a copy of :data:`LAUNCHES`): "gather"
     (the forward), "gather_grad" (the backward's tile route),
     "gather_scale", "gather_add" and "gather_finish" (its fixed-point
-    route)."""
+    route); and "gather_bytes", the bytes the calls must move."""
     return dict(LAUNCHES)
 
 

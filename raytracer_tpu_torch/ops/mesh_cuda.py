@@ -32,6 +32,7 @@ import torch
 
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.ops import gather_cuda as TG
+from raytracer_tpu_torch.utils import profiling as P
 
 RT = 256           # rays per subtile = threads per CTA (one 16x16 block)
 CHUNK = 1024       # triangles per chunk (the unit of the gate)
@@ -99,7 +100,7 @@ def _library():
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.mesh_nearest_launch.argtypes = [
-                p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, p]
+                p, p, p, p, p, p, p, i, p, i, p, p, p, p, p, p, i, i, p, p]
             lib.mesh_nearest_slices.argtypes = [i]
             lib.mesh_nearest_slices.restype = ctypes.c_int
             lib.live_supergroups_launch.argtypes = [p, p, p, i, p, p, p, p, i,
@@ -269,9 +270,11 @@ def mesh_nearest(origins, directions, planes, bb, *, t_init=None,
 
 def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
           mode):
-    """Launches K1 proper on the pre-pass's lists (counted)."""
+    """Launches K1 proper on the pre-pass's lists (counted, and its gated
+    tests counted on the card)."""
     r = origins.shape[0]
     dev = origins.device
+    tests = _tests_counter(dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     idx = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
@@ -284,6 +287,7 @@ def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
         best.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
         v.data_ptr(), r, int(bool(any_hit)),
         torch.cuda.current_stream(dev).cuda_stream,
+        None if tests is None else tests.data_ptr(),
     )
     _raise_on(err, "mesh_nearest")
     _wrapper.launches += 1
@@ -296,31 +300,74 @@ def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
 _wrapper = mesh_nearest
 _wrapper.launches = 0
 _wrapper.launches_by_mode = {"nearest": 0, "any_hit": 0, "behind": 0}
+# K1's gated tests, counted by the walk on the card at every launch and
+# graph replay: one int64 a device
+_TESTS = {}
+
+
+def _tests_counter(dev):
+    """``dev``'s test counter, made at K1's first launch outside a capture.
+    A capture that comes before any such launch on ``dev`` gets None, and
+    its graph counts nothing; the tile and train programs run every part
+    eagerly before they capture it."""
+    counter = _TESTS.get(dev)
+    if counter is None and not torch.cuda.is_current_stream_capturing():
+        counter = _TESTS[dev] = torch.zeros(1, dtype=torch.int64,
+                                            device=dev)
+    return counter
+
+
+def k1_tests() -> int:
+    """K1's ray x triangle tests that the per-ray gates let through, as
+    the walk counted them on the card (the tests of
+    :func:`mesh_nearest_plain`'s ``count_tests`` ``"ray"``), by every
+    launch and graph replay since the counters were reset. Read only while
+    the span recorder (``utils/profiling``) is on: the device is then
+    synchronized and the counters read; off, 0 without touching the
+    card."""
+    if not P.enabled() or not _TESTS:
+        return 0
+    total = 0
+    for dev, counter in _TESTS.items():
+        torch.cuda.synchronize(dev)
+        total += int(counter.item())
+    return total
 
 
 def reset_launches():
-    """Zeroes the launch counters of K1, K1b and table_gather."""
+    """Zeroes the launch counters of K1, K1b and table_gather, and K1's
+    test counters on the card."""
     _wrapper.launches = 0
     live_supergroups.launches = 0
     for k in _wrapper.launches_by_mode:
         _wrapper.launches_by_mode[k] = 0
+    for counter in _TESTS.values():
+        counter.zero_()
     TG.reset_launches()
 
 
-def launch_counts() -> dict:
-    """The launch counters: K1's ("k1" and by mode), K1b's ("prepass")
-    and table_gather's, one a kernel ("gather" and "gather_*":
-    ops/gather_cuda.launch_counts)."""
+def host_counts() -> dict:
+    """The launch counters kept on the host: K1's ("k1" and by mode),
+    K1b's ("prepass") and table_gather's, one a kernel ("gather" and
+    "gather_*": ops/gather_cuda.launch_counts, with the bytes its calls
+    must move, "gather_bytes")."""
     return {"k1": _wrapper.launches, **_wrapper.launches_by_mode,
             "prepass": live_supergroups.launches, **TG.launch_counts()}
 
 
+def launch_counts() -> dict:
+    """:func:`host_counts` and K1's gated tests counted on the card
+    ("k1_tests", :func:`k1_tests`)."""
+    return {**host_counts(), "k1_tests": k1_tests()}
+
+
 def add_launches(delta: dict, sign: int = 1):
     """Adds ``sign`` times ``delta`` (a difference of two
-    :func:`launch_counts`) to the counters. A CUDA graph records its
+    :func:`host_counts`) to the counters. A CUDA graph records its
     kernels' launches when it is captured, which launches nothing
     (core/tile_program.py takes them back off) and launches them on every
-    replay (it adds them again)."""
+    replay (it adds them again). K1's tests are not among them: a replay
+    counts them on the card by itself."""
     _wrapper.launches += sign * delta["k1"]
     for k in _wrapper.launches_by_mode:
         _wrapper.launches_by_mode[k] += sign * delta[k]

@@ -226,8 +226,8 @@ def render_sharded(scene: T.Scene, camera, mesh=None, *, tile_rays=None,
     with torch.no_grad():
         if graphs:
             prog = program_for(scene, per_rank, st.recursion_limit)
-            mine = prog.frame(scene, inv, consts, camera.hsize, slabs, False,
-                              generator)
+            prog.set_camera(inv, consts, camera.hsize)
+            mine = prog.frame(scene, slabs, False, generator)
         else:
             mine = torch.cat([
                 color_at(scene, *_primary_rays(inv, consts, idx,

@@ -34,6 +34,7 @@ import torch
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.render import color_at, full_f32
 from raytracer_tpu_torch.parallel.mesh import _layout
+from raytracer_tpu_torch.utils import profiling as P
 
 # Float tables DERIVED from (or coupled to) other tables at scene build:
 # inv_tf pairs with normal_mat, the triangle rows with their precomputed
@@ -148,21 +149,30 @@ def render_loss_and_grad(params, recombine, origins, directions, target,
     runs the eager :func:`render_loss` and ``backward()``, every op
     launched from the host. Both give the same loss and gradients (bit
     for bit on the CPU; on cuda the gradients to rounding, see the
-    program's docstring)."""
-    if graphs:
-        loss, grads = _graphed_loss_and_grad(
-            params, recombine, origins, directions, target, generator,
-            n_micro or 1, remat)
-        return loss, {k: torch.zeros_like(params[k]) if g is None else g
-                      for k, g in grads.items()}
-    if n_micro is not None and n_micro > 1:
-        return _grad_microbatched(params, recombine, origins, directions,
-                                  target, generator, n_micro, remat=remat)
-    leaves = _leaves(params)
-    loss = render_loss(leaves, recombine, origins, directions, target,
-                       generator, remat=remat)
-    loss.backward()
-    return loss.detach(), _grads(leaves)
+    program's docstring).
+
+    With the span recorder on (``utils/profiling``) the call is the span
+    ``loss_and_grad`` (a root where no ``step`` encloses it); through the
+    train program it holds, per microbatch, ``train.forward``,
+    ``train.backward`` and ``train.combine`` (the eager sums, and the
+    rays' backward), then ``train.settle``, and at the first use
+    ``train.build``."""
+    with P.span("loss_and_grad"):
+        if graphs:
+            loss, grads = _graphed_loss_and_grad(
+                params, recombine, origins, directions, target, generator,
+                n_micro or 1, remat)
+            return loss, {k: torch.zeros_like(params[k]) if g is None else g
+                          for k, g in grads.items()}
+        if n_micro is not None and n_micro > 1:
+            return _grad_microbatched(params, recombine, origins,
+                                      directions, target, generator,
+                                      n_micro, remat=remat)
+        leaves = _leaves(params)
+        loss = render_loss(leaves, recombine, origins, directions, target,
+                           generator, remat=remat)
+        loss.backward()
+        return loss.detach(), _grads(leaves)
 
 
 def _graphed_loss_and_grad(params, recombine, origins, directions, target,
@@ -175,7 +185,10 @@ def _graphed_loss_and_grad(params, recombine, origins, directions, target,
     (a table it never reaches gets None, as an eager leaf's ``.grad``). A
     microbatch's sum of a table it does not reach is -0.0, which adds
     nothing, so the first microbatch that reaches a table gives its sum
-    bit for bit, as eager's first ``.grad`` is that microbatch's."""
+    bit for bit, as eager's first ``.grad`` is that microbatch's. With the
+    span recorder on, a pair of timing events on the program's stream
+    around the microbatches gives the open root span the step's device
+    time (``attrs["device_ms"]``), read once a later sync has passed it."""
     from raytracer_tpu_torch.core.train_program import program_for
 
     full_f32()
@@ -187,38 +200,55 @@ def _graphed_loss_and_grad(params, recombine, origins, directions, target,
     ray_grad = tuple(x.requires_grad for x in rays)
     prog = program_for(params, recombine, m, remat=remat, ray_grad=ray_grad)
     prog.load(params)
+    timing = prog.capture and P.enabled()
+    if timing:
+        start = prog.timing_event()
     loss_sum = torch.zeros((), device=origins.device)
     total = {}
     for i in range(n_micro):
         sl = slice(i * m, (i + 1) * m)
-        loss = prog.forward(origins[sl], directions[sl], target[sl],
-                            generator)
-        grads, g_rays = prog.backward()
-        if any(ray_grad):
-            # the camera's graph, outside the program, eagerly
-            torch.autograd.backward(
-                [x[sl] for x, need in zip(rays, ray_grad) if need],
-                [g for g, need in zip(g_rays, ray_grad) if need],
-                retain_graph=i < n_micro - 1)
-        loss_sum = loss_sum + loss
-        for k, g in grads.items():
-            total[k] = g.clone() if k not in total else total[k].add_(g)
-    reached = prog.settle()
-    scale = 1.0 if n_micro == 1 else 1.0 / n_micro
-    out = {k: total[k] * scale if k in reached else None for k in params}
-    return (loss.clone() if n_micro == 1 else loss_sum * scale), out
+        with P.span("train.forward"):
+            loss = prog.forward(origins[sl], directions[sl], target[sl],
+                                generator)
+        with P.span("train.backward"):
+            grads, g_rays = prog.backward()
+        with P.span("train.combine"):
+            if any(ray_grad):
+                # the camera's graph, outside the program, eagerly
+                torch.autograd.backward(
+                    [x[sl] for x, need in zip(rays, ray_grad) if need],
+                    [g for g, need in zip(g_rays, ray_grad) if need],
+                    retain_graph=i < n_micro - 1)
+            loss_sum = loss_sum + loss
+            for k, g in grads.items():
+                total[k] = g.clone() if k not in total else total[k].add_(g)
+    if timing:
+        P.device_span(start, prog.timing_event())
+    with P.span("train.settle"):
+        reached = prog.settle()
+        P.resolve_device_spans()
+    with P.span("train.combine"):
+        scale = 1.0 if n_micro == 1 else 1.0 / n_micro
+        out = {k: total[k] * scale if k in reached else None
+               for k in params}
+        return (loss.clone() if n_micro == 1 else loss_sum * scale), out
 
 
 def train_step(scene: T.Scene, origins, directions, target, *, lr=1e-2,
                generator=None, n_micro=None, remat=True, graphs=True):
     """One SGD step on every float table of :func:`partition_scene`.
     Returns (loss, the updated scene). ``n_micro``, ``remat``, ``graphs``:
-    see :func:`render_loss_and_grad`; the update runs eagerly."""
-    params, recombine = partition_scene(scene)
-    loss, grads = render_loss_and_grad(
-        params, recombine, origins, directions, target, generator,
-        n_micro=n_micro, remat=remat, graphs=graphs)
-    return loss, recombine(_sgd(params, grads, lr))
+    see :func:`render_loss_and_grad`; the update runs eagerly. With the
+    span recorder on, the step is the span ``step``, and the scene's
+    partition, the update and the new scene are ``step.update``."""
+    with P.span("step"):
+        with P.span("step.update"):
+            params, recombine = partition_scene(scene)
+        loss, grads = render_loss_and_grad(
+            params, recombine, origins, directions, target, generator,
+            n_micro=n_micro, remat=remat, graphs=graphs)
+        with P.span("step.update"):
+            return loss, recombine(_sgd(params, grads, lr))
 
 
 def _sgd(params, grads, lr):

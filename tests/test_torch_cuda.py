@@ -434,9 +434,10 @@ def test_graphed_train_step_equals_eager(name, remat):
     atomic order on the card), the same K1, K1b and table_gather forward
     launches per step (the graphed side counted from the level logs, after
     the first step, whose warm-up runs every branch once; table_gather's
-    backward launches are not compared: a level's captured vjp runs the
-    backward of every lookup of the level, eager autograd only of those
-    its loss reaches); a second step, on a new scene object of new
+    backward launches, and the bytes that include the backward's, are not
+    compared: a level's captured vjp runs the backward of every lookup of
+    the level, eager autograd only of those its loss reaches); a second
+    step, on a new scene object of new
     parameter tensors (the same values) and the same frozen tables, as a
     train step makes, captures nothing new."""
     _require_cuda()
@@ -471,7 +472,7 @@ def test_graphed_train_step_equals_eager(name, remat):
     (lg, sg, kg), (le, se, ke) = out[True], out[False]
     assert torch.equal(lg, le)
     from raytracer_tpu_torch.ops import gather_cuda as GA
-    for key in GA.BACKWARD_KERNELS:
+    for key in (*GA.BACKWARD_KERNELS, "gather_bytes"):
         kg.pop(key)
         ke.pop(key)
     assert kg == ke
@@ -833,6 +834,7 @@ def test_graphed_frame_is_one_launch_per_tile(name, monkeypatch):
             return _real(*a, **kw)
 
         monkeypatch.setattr(owner, "synchronize", sync)
+    prog.set_camera(inv, consts, cam.hsize)
     torch.cuda.synchronize()
     calls.update(launch=0, sync=0)
     MC.reset_launches()
@@ -840,7 +842,7 @@ def test_graphed_frame_is_one_launch_per_tile(name, monkeypatch):
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
-            out = prog.frame(sc, inv, consts, cam.hsize, idx_tiles, True, g)
+            out = prog.frame(sc, idx_tiles, True, g)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert calls == {"launch": len(idx_tiles), "sync": 0}
@@ -991,8 +993,9 @@ def _check_backward(GA, grad, idx, g):
     """table_gather's backward kernel on (grad, idx) against the f64 sum
     by index, to rtol 1e-5 of the sum of the terms' magnitudes, as the
     plain version (``index_add_``) is; two calls (int64 and int32
-    indices) equal bit for bit; each launch counted on its kernel; rows
-    no index reaches exactly 0."""
+    indices) equal bit for bit; each launch counted on its kernel, and the
+    bytes of each call (``backward_bytes``); rows no index reaches exactly
+    0."""
     rest = grad.shape[idx.dim():]
     want = torch.zeros((g, *rest), dtype=torch.float64, device="cuda")
     want.index_add_(0, idx, grad.double())
@@ -1002,7 +1005,10 @@ def _check_backward(GA, grad, idx, g):
     again = GA.gather_backward(grad, idx.int(), g)
     launched = {k: v - before[k] for k, v in GA.launch_counts().items()
                 if v != before[k]}
-    per_call = _backward_kernels(GA, idx.numel(), g, grad[0].numel())
+    n, k = idx.numel(), grad[0].numel()
+    assert launched.pop("gather_bytes") == (GA.backward_bytes(n, g, k, 8)
+                                            + GA.backward_bytes(n, g, k, 4))
+    per_call = _backward_kernels(GA, n, g, k)
     assert launched == {k: 2 * v for k, v in per_call.items() if v}
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.equal(got, again)
@@ -1246,3 +1252,183 @@ def test_graphed_microbatched_loss_is_sum_times_reciprocal():
                 total = total + render_loss(params, recombine, o[sl], d[sl],
                                             target[sl], remat=False)
         assert torch.equal(loss, total * (1.0 / 3))
+
+
+def _soup(r, det_eps=None):
+    """20,000 triangles in z 0 to 30 (3 supergroups) and ``r`` rays from
+    z = -5 heading +z, every origin outside every chunk's box; with
+    ``det_eps`` +inf no ray hits a triangle."""
+    rng = np.random.default_rng(13)
+    nt = 20000
+    c = rng.uniform(-3, 3, (nt, 3))
+    c[:, 2] = np.sort(rng.uniform(0, 30, nt))
+    p1 = (c + rng.normal(0, 0.1, (nt, 3))).astype(np.float32)
+    e1, e2 = (rng.normal(0, 0.2, (nt, 3)).astype(np.float32) for _ in "ab")
+    o = (rng.uniform(-2, 2, (r, 3)) + np.array([0, 0, -5.0])).astype(
+        np.float32)
+    d = rng.normal(0, 0.2, (r, 3)) + np.array([0, 0, 1.0])
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    eps = None if det_eps is None else np.full(nt, det_eps, np.float32)
+    tri, bb = MC.pack_tri_planes_np(p1, e1, e2, eps)
+    cu = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    return cu(o), cu(d), cu(tri), (cu(bb[0]), cu(bb[1]))
+
+
+def _counted(fn):
+    """(fn's result, K1's tests it counted on the card), the span
+    recorder on."""
+    from raytracer_tpu_torch.utils import profiling as P
+
+    P.enable()
+    try:
+        before = MC.k1_tests()
+        out = fn()
+        return out, MC.k1_tests() - before
+    finally:
+        P.disable()
+        P.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "any_hit", "behind"])
+@pytest.mark.parametrize("rays", [1024, 16384])
+def test_k1_test_counter(mode, rays, monkeypatch):
+    """K1's test counter: the outputs bit-equal with the counter passed and
+    not (a null pointer); with the cap at 0 nothing is counted; on rays
+    that meet chunk
+    boxes and no triangle (det_eps +inf, no cap: every gate is open
+    whatever the slices' order), the count equals the plain version's
+    ``count_tests`` "ray" count exactly (the reversed rays, heading away
+    from the soup, meet nothing: 0 on both sides)."""
+    _require_cuda()
+    kw = dict(any_hit=mode == "any_hit", reverse=mode == "behind")
+    args = _soup(rays)
+    cap = torch.full((rays,), 12.0, device="cuda")
+    with monkeypatch.context() as m:
+        m.setattr(MC, "_tests_counter", lambda dev: None)
+        off = MC.mesh_nearest(*args, t_init=cap, **kw)
+    on, tests = _counted(lambda: MC.mesh_nearest(*args, t_init=cap, **kw))
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert (tests > 0) == (mode != "behind")
+    _, tests = _counted(lambda: MC.mesh_nearest(
+        *args, t_init=torch.zeros_like(cap), **kw))
+    assert tests == 0
+    blind = _soup(rays, det_eps=np.inf)
+    (t, *_), tests = _counted(lambda: MC.mesh_nearest(*blind, **kw))
+    assert bool(torch.isinf(t).all())
+    *_, plain = MC.mesh_nearest_plain(*blind, count_tests=True, **kw)
+    assert tests == plain["ray"]
+    assert (tests > 0) == (mode != "behind")
+
+
+@pytest.mark.cuda
+def test_k1_counts_in_a_graph_captured_with_the_recorder_off():
+    """A graph of K1 captured while the span recorder is off counts its
+    tests at every replay once the recorder is on, as many as an eager
+    launch (no-hit rays, so the count is exact)."""
+    _require_cuda()
+    from raytracer_tpu_torch.utils import profiling as P
+
+    blind = _soup(4096, det_eps=np.inf)
+    _, eager = _counted(lambda: MC.mesh_nearest(*blind))
+    assert eager > 0
+    P.disable()
+    before = MC.host_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        MC.mesh_nearest(*blind)
+    MC.add_launches({k: v - before[k] for k, v in MC.host_counts().items()},
+                    -1)
+    _, replayed = _counted(lambda: (graph.replay(), graph.replay()))
+    assert replayed == 2 * eager
+
+
+@pytest.mark.cuda
+def test_graphed_frame_counts_equal_eager_with_the_recorder():
+    """With the span recorder on, a graphed dragons-style frame (six slots
+    of mesh instances, K1 in every mode) against the eager one: the frames
+    and the gathers' bytes equal, and the graphed frame's capture span
+    holds the program's ``capture_s``; each graphed frame's root span
+    carries its device time. K1's tests are counted on both sides but not
+    compared: a subtile's slices race on its rays' best-t words, and a
+    gate that reads a word before another slice's atomicMin lands lets a
+    unit through that it would have closed, so the count moves from run
+    to run, eager or graphed alike (8,007,424 to 8,009,088 over five
+    frames of this scene on the H100). ``test_k1_test_counter`` holds the
+    count exactly where no gate depends on that race."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.utils import profiling as P
+
+    items, cam = scenes.dragons_equiv(instances=2, hsize=128, vsize=64)
+    sc = build_scene(items, device="cuda")
+    P.clear()
+    P.enable()
+    try:
+        out = {}
+        for graphs in (True, True, False):
+            MC.reset_launches()
+            out.setdefault(graphs, []).append(
+                (render(sc, cam, quantize=True, graphs=graphs),
+                 MC.launch_counts()))
+        spans = P.spans()
+    finally:
+        P.disable()
+        P.clear()
+    (first, _), (graphed, kg) = out[True]
+    eager, ke = out[False][0]
+    np.testing.assert_array_equal(first, eager)
+    np.testing.assert_array_equal(graphed, eager)
+    assert kg["gather_bytes"] == ke["gather_bytes"] > 0
+    assert kg["k1_tests"] > 0 and ke["k1_tests"] > 0
+    capture = sum(s.seconds for s in spans if s.name == "frame.capture")
+    assert capture == TP.program_of(sc).stats["capture_s"] > 0
+    roots = [s for s in spans if s.name == "frame"]
+    assert len(roots) == 3
+    assert all(s.attrs["device_ms"] > 0 for s in roots[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_graphed_train_step_bit_equal_eager_with_the_recorder(on):
+    """A flagship train step (n_micro=2, remat off) graphed against eager
+    with the span recorder off and on: the loss and every updated table
+    bit-equal; on, the build span holds the program's ``capture_s`` and
+    each graphed step's root its device time, attached at a later sync."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.core import train_program as TPG
+    from raytracer_tpu_torch.parallel import partition_scene, train_step
+    from raytracer_tpu_torch.utils import profiling as P
+
+    items, cam = scenes.flagship(64, 48)
+    sc = build_scene(items, device="cuda")
+    o, d = ray_grid(cam, device="cuda")
+    target = torch.full_like(o, 0.2)
+    TPG.drop_programs()
+    P.clear()
+    (P.enable if on else P.disable)()
+    try:
+        out = {}
+        for graphs in (True, True, False):
+            out[graphs] = train_step(sc, o, d, target, lr=0.05, n_micro=2,
+                                     remat=False, graphs=graphs)
+        torch.cuda.synchronize()
+        spans = P.spans()
+    finally:
+        P.disable()
+        P.clear()
+    (lg, sg), (le, se) = out[True], out[False]
+    assert torch.equal(lg, le)
+    pg, pe = partition_scene(sg)[0], partition_scene(se)[0]
+    for k in pe:
+        assert torch.equal(pg[k], pe[k]), k
+    assert bool(spans) == on
+    if on:
+        build = sum(s.seconds for s in spans if s.name == "train.build")
+        assert build == TPG.programs()[0].stats["capture_s"] > 0
+        roots = [s for s in spans if s.name == "step"]
+        assert len(roots) == 3
+        assert all(s.attrs["device_ms"] > 0 for s in roots[:2])
+        assert "device_ms" not in roots[2].attrs
