@@ -38,9 +38,11 @@ distribution, not pixel for pixel.
 Live-ray compaction. Deep levels of mesh and area-light scenes are mostly
 parked rays, so ``color_at`` sorts a level's live rays to the front and
 shades only the narrowest of R/16, R/4, R/2 or R rows that holds them
-(:func:`_packed_shade_level`, the JAX package's rule and widths). In
-:func:`color_at` the width is a host decision, read in the same sync as
-the whole-level skip.
+(:func:`_packed_shade_level`, the JAX package's rule and widths). The
+levels of a blend scene, which double by concatenation, are mostly parked
+too; they pack wherever the level keeps nothing for a backward
+(:func:`packs`), a rule of the port's own. In :func:`color_at` the width
+is a host decision, read in the same sync as the whole-level skip.
 
 The compiled frame. ``render`` runs each tile through
 ``core/tile_program.TileProgram``, the counterpart of the JAX package's
@@ -357,6 +359,27 @@ def rows_of(x, idx):
     return x.index_select(0, idx)
 
 
+def _live_first(live, width: int):
+    """The first ``width`` rows of a level in its stable live-first order,
+    ``argsort(~live, stable=True)[:width]``, by a prefix sum in place of
+    the sort: a live row goes to the slot after the live rows before it, a
+    parked row after every live one, in the order of the parked rows. The
+    rows past ``width`` all go to one spare slot, dropped: the result holds
+    ``width`` indices, not the level's."""
+    row = torch.arange(live.shape[0], device=live.device)
+    ahead = torch.cumsum(live, 0)              # live rows up to each row
+    slot = torch.where(live, ahead - 1, ahead[-1] + row - ahead)
+    sel = row.new_empty(width + 1).scatter_(0, slot.clamp_max_(width), row)
+    return sel[:width]
+
+
+# The rows a packed blend level does not shade: zero colour and weights,
+# parked origins and directions, in the order of its seven outputs
+# (colour, then the reflect and the refract spawns' origin, direction and
+# weight).
+_UNSHADED = ((0.0,) * 3 + PARK_ORIGIN + PARK_DIR) * 2 + (0.0,) * 3
+
+
 def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
                         thread_perm=False, width):
     """:func:`shade_level` with the live rays (any weight > 0) moved to the
@@ -369,22 +392,33 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
     ``jitter`` (drawn at ``(R, S, 4)``), so a seeded frame agrees with the
     full-width one in distribution.
 
-    Returns shade_level's outputs at R rows, in the rays' own order; with
-    ``thread_perm``, in the sorted order instead, plus the permutation
-    ``order`` (slot -> row), which the caller composes across levels and
-    undoes once (``color_at``)."""
+    Returns shade_level's outputs at R rows, in the rays' own order: the
+    shaded rows copied into full-width outputs that start zero (colour,
+    weights) and parked (origins, directions), the order found by a prefix
+    sum (:func:`_live_first`). With ``thread_perm``, in the sorted order
+    instead (an argsort, the rows past ``width`` appended parked), plus
+    the permutation ``order`` (slot -> row), which the caller composes
+    across levels and undoes once (``color_at``)."""
     r = o.shape[0]
+    if jitter is not None:
+        jitter = tuple(j[:width] for j in jitter)
+    if not thread_perm:
+        # one gather of the three inputs, one copy of the seven outputs
+        # into their full-width rows: each a single allocation
+        sel = _live_first((w > 0.0).any(-1), width)
+        colored, refl, refr = shade_level(
+            scene, *torch.stack([o, d, w]).index_select(1, sel), jitter)
+        out = T.small_const(_UNSHADED, o.device, o.dtype).view(7, 1, 3)
+        out = out.expand(7, r, 3).contiguous().index_copy_(
+            1, sel, torch.stack([colored, *refl, *refr]))
+        return out[0], tuple(out[1:4]), tuple(out[4:7])
     live = (w > 0.0).any(-1)
     order = torch.argsort((~live).to(torch.uint8), stable=True)
     sel = order[:width]
-    if jitter is not None:
-        jitter = tuple(j[:width] for j in jitter)
     colored, refl, refr = shade_level(scene, rows_of(o, sel),
                                       rows_of(d, sel), rows_of(w, sel),
                                       jitter)
-    out = [colored]
-    for spawn in (refl, refr):
-        out += list(spawn)
+    out = [colored, *refl, *refr]
     if width < r:
         zero = torch.zeros(3, dtype=colored.dtype, device=o.device)
         po = T.small_const(PARK_ORIGIN, o.device, o.dtype)
@@ -392,32 +426,46 @@ def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
         fills = (zero, po, pd, zero, po, pd, zero)
         out = [torch.cat([x, f.expand(r - width, 3)]) for x, f in
                zip(out, fills)]
-    if not thread_perm:
-        inv_order = torch.argsort(order)
-        out = [rows_of(x, inv_order) for x in out]
-    res = out[0], tuple(out[1:4]), tuple(out[4:7])
-    return res + (order,) if thread_perm else res
+    return out[0], tuple(out[1:4]), tuple(out[4:7]), order
 
 
-def packs(static: T.SceneStatic, r: int) -> bool:
-    """Whether ``color_at`` compacts a level of ``r`` rays (the JAX
-    package's rule, ``render.py:406-410``): mesh scenes of over 20,000
-    free triangles and area-light scenes, at R >= 4096 and R % 16 == 0.
-    Scenes of small primitives keep their levels mostly live, and there a
-    sort costs more than it saves."""
-    return bool((static.counts[5] - static.n_csg_tris > 20000
-                 or static.area_steps) and r >= 4096 and r % 16 == 0)
+def packs(static: T.SceneStatic, r: int, *, keeps: bool = True) -> bool:
+    """Whether a level of ``r`` rays is compacted (:func:`level_width`),
+    at R >= 4096 and R % 16 == 0:
+
+    * mesh scenes of over 20,000 free triangles and area-light scenes (the
+      JAX package's rule, ``render.py:406-410``);
+    * blend scenes, where the level keeps nothing for a backward (not
+      ``keeps``: the tile program, and ``color_at`` under
+      ``torch.no_grad()``). A blend scene's levels double, and most of
+      their rows are parked: on the benchmark's flagship scene at
+      1280x720, in tiles of 16,384 rays, 40.9% of level 1's rows are
+      live, 9.0% of level 2's, 5.4% of level 3's and 2.3% of level 4's,
+      and a frame shades 2,967,552 rows packed against 15,056,896 whole.
+      A level that keeps its tensors (``keeps``: autograd's, or a train
+      program's, which holds every width's in a pool of its own) runs
+      whole, so a train step holds no more memory than one whole-width
+      body a level.
+
+    Other scenes of small primitives keep their levels mostly live, and
+    there a sort costs more than it saves."""
+    big = static.counts[5] - static.n_csg_tris > 20000 or static.area_steps
+    return bool((big or (static.has_blend and not keeps))
+                and r >= 4096 and r % 16 == 0)
 
 
 # The level steps. color_at's loop and core/tile_program.TileProgram run
 # these same functions: the eager loop level by level, the program as one
 # CUDA graph per tile, each (level, width) the body of a conditional node.
 
-def level_width(static: T.SceneStatic, rows: int, n_live: int):
+def level_width(static: T.SceneStatic, rows: int, n_live: int, *,
+                keeps: bool = True):
     """The width a level of ``rows`` rays, ``n_live`` of them live, is
-    shaded at: :func:`_packed_width` where :func:`packs` holds, else None
-    (the whole level, unsorted)."""
-    return _packed_width(rows, n_live) if packs(static, rows) else None
+    shaded at: :func:`_packed_width` where :func:`packs` holds (``keeps``:
+    whether the level keeps its tensors for a backward), else None (the
+    whole level, unsorted)."""
+    return (_packed_width(rows, n_live) if packs(static, rows, keeps=keeps)
+            else None)
 
 
 # The branch of a level whose rays are all parked (the JAX package's
@@ -426,18 +474,22 @@ DEAD = "dead"
 
 
 def level_branches(static: T.SceneStatic, rows: int, *,
-                   dead: bool = False) -> tuple:
+                   dead: bool = False, keeps: bool = True) -> tuple:
     """The widths a level of ``rows`` rays may take, one conditional body
     each: R/16, R/4, R/2 and R where :func:`packs` holds, else (None,),
     the whole level; with ``dead``, then :data:`DEAD` (the train
-    program's pass-through of a level with no live ray)."""
-    out = ((rows // 16, rows // 4, rows // 2, rows) if packs(static, rows)
-           else (None,))
+    program's pass-through of a level with no live ray). ``keeps``:
+    whether the level keeps its tensors for a backward, as a train
+    program's do; the tile program's keep nothing, so a blend scene's
+    levels take the four widths there and one whole body in a train
+    program (:func:`packs`)."""
+    out = ((rows // 16, rows // 4, rows // 2, rows)
+           if packs(static, rows, keeps=keeps) else (None,))
     return out + (DEAD,) if dead else out
 
 
 def level_predicates(static: T.SceneStatic, rows: int, live, *,
-                     dead: bool = False):
+                     dead: bool = False, keeps: bool = True):
     """Which branch of :func:`level_branches` a level of ``rows`` rays
     takes, from its live count ``live`` (an int64 tensor, on the device or
     not): int32 flags [..., n_branches], at most one set, none when
@@ -446,9 +498,10 @@ def level_predicates(static: T.SceneStatic, rows: int, live, *,
     so that a CUDA graph computes it on the card (the JAX package's
     ``lax.cond`` chain on ``jnp.any(w > 0)`` and the live count). With
     ``dead``, one more flag, ``live == 0`` (the branch :data:`DEAD`), so
-    that exactly one is set. The programs' conditional nodes read these
-    flags; on the CPU they read them on the host (:func:`taken_branch`)."""
-    branches = level_branches(static, rows)
+    that exactly one is set. ``keeps``: as in :func:`level_branches`. The
+    programs' conditional nodes read these flags; on the CPU they read
+    them on the host (:func:`taken_branch`)."""
+    branches = level_branches(static, rows, keeps=keeps)
     alive = live > 0
     if branches == (None,):
         flags = [alive]
@@ -485,8 +538,10 @@ def shade_step(scene: T.Scene, o, d, w, jitter, *, width, thread_perm):
     """One level's trace + shade at ``width`` (:func:`level_width`):
     (colored, reflect spawn, refract spawn, order), where ``order`` is the
     live-first permutation a packed ``thread_perm`` level leaves its
-    outputs in, else None."""
-    if width is None:
+    outputs in, else None. A level that keeps its rays' order (not
+    ``thread_perm``: a blend scene's) runs whole and unsorted at width R,
+    as at width None: the same rows in the same order."""
+    if width is None or (width == o.shape[0] and not thread_perm):
         return (*shade_level(scene, o, d, w, jitter=jitter), None)
     out = _packed_shade_level(scene, o, d, w, jitter=jitter,
                               thread_perm=thread_perm, width=width)
@@ -615,8 +670,11 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
 
     Levels after the first are compacted where :func:`packs` says so
     (:func:`_packed_shade_level`): the live count, read once per level for
-    the skip, picks the width (:func:`level_width`). Every level draws its
-    jitter at its whole width, run or not (see the module docstring).
+    the skip, picks the width (:func:`level_width`). A blend scene's
+    levels pack only under ``torch.no_grad()``, where a level keeps
+    nothing for a backward (``render(..., graphs=False)``); with
+    gradients on they run whole, as in a train program. Every level draws
+    its jitter at its whole width, run or not (see the module docstring).
     Without a blend material the level width stays R, so the packed
     levels keep their outputs in sorted order, the image follows, and the
     composed permutation is undone once at the end
@@ -647,6 +705,7 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     perm = None
     thread_perm = not st.has_blend
     rows = level_rows(st, r, limit)
+    keeps = torch.is_grad_enabled()
     drawn = 0
     for level in range(len(rows)):
         width = None
@@ -654,7 +713,7 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
             n_live = int(live_count(w))   # the level's one sync
             if n_live == 0:
                 break
-            width = level_width(st, rows[level], n_live)
+            width = level_width(st, rows[level], n_live, keeps=keeps)
         jitter = draw_jitter(scene, rows[level], generator)
         drawn += 1
         step = functools.partial(shade_step, width=width,

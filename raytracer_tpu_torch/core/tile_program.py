@@ -22,7 +22,11 @@ A :class:`TileProgram` runs a tile as one graph:
    sets the conditional handles; then one IF node per branch, at most
    one of them run, whose body is ``render.level_step`` at that width on
    the level's buffers. A level whose live count is 0 runs no body and
-   leaves the count 0, so every later level is skipped too;
+   leaves the count 0, so every later level is skipped too. A tile keeps
+   nothing for a backward, so a blend scene's levels pack here too
+   (``render.packs`` with ``keeps=False``), where a train program runs
+   them whole: their narrow bodies shade the live rays alone, and the
+   widest is the whole level, unsorted;
 3. the finish: the composed permutation of the packed levels undone,
    quantized if asked, into the tile buffer.
 
@@ -63,8 +67,10 @@ the device (-1: skipped, 0: run whole, else the packed width), and each
 part records its K1 and
 K1b launches at capture (taken back off the counters: a capture launches
 nothing). :meth:`TileProgram.to_host` reads the logs with the frame,
-rebuilds ``levels`` and adds each part's launches once for every time it
-ran.
+rebuilds ``levels``, adds each part's launches once for every time it
+ran and counts the rows the levels shaded (``rows_shaded``: a level's
+logged width, or its rows where it ran whole), which it gives the open
+root span as ``attrs["rows_shaded"]``.
 
 On a CPU scene the program runs the same parts on the same buffers
 without capture: it computes the same flags (``render.level_predicates``)
@@ -121,11 +127,12 @@ class TileProgram:
     (graphs), of them ``bodies`` (conditional bodies), ``capture_s``
     (seconds spent warming up, capturing and instantiating: the clock of
     the ``frame.capture`` span), ``replays``
-    (tile graph launches) and ``syncs`` (host reads of the card: one per
-    frame, :meth:`to_host`). ``frame_stats``: ``tiles``,
-    ``replays`` and ``syncs`` of the last frame. ``levels``: (level, rays,
-    width) of every level run since the camera was last set, tile by
-    tile, read from the level logs (width None: the level ran whole).
+    (tile graph launches), ``syncs`` (host reads of the card: one per
+    frame, :meth:`to_host`) and ``rows_shaded`` (the rows the levels
+    shaded, read from the level logs). ``frame_stats``: ``tiles``,
+    ``replays`` and ``syncs`` of the last frame. ``levels``: (level,
+    rays, width) of every level run since the camera was last set, tile
+    by tile, read from the level logs (width None: the level ran whole).
     ``graphs``: the captured parts by key."""
 
     def __init__(self, static, device, tile: int, limit: int):
@@ -137,7 +144,8 @@ class TileProgram:
         # order: perm composes them (the identity after level 0)
         self.tracks_perm = self.thread_perm and R.packs(static, tile)
         self.rows = R.level_rows(static, tile, limit)
-        self.branches = [R.level_branches(static, r) for r in self.rows]
+        self.branches = [R.level_branches(static, r, keeps=False)
+                         for r in self.rows]
         self.capture = self.device.type == "cuda"
         self.bufs = {}
         self.graphs = {}          # part key -> (CUDAGraph, launch counts)
@@ -156,7 +164,7 @@ class TileProgram:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
         self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
-                          syncs=0)
+                          syncs=0, rows_shaded=0)
         self.frame_stats = dict(tiles=0, replays=0, syncs=0)
         self._levels = []
 
@@ -213,7 +221,7 @@ class TileProgram:
 
     def _predicates(self, level):
         return {("flags", level): R.level_predicates(
-            self.static, self.rows[level], self.live)}
+            self.static, self.rows[level], self.live, keeps=False)}
 
     def _body(self, scene, level, width):
         """Branch ``width`` of ``level``: its results by buffer name."""
@@ -400,35 +408,46 @@ class TileProgram:
     def to_host(self, t):
         """``t`` (a frame or a tile of this program, or what was made of
         it on the device) on the host: the frame's one sync, which also
-        brings its level logs. Rebuilds ``levels`` from the logs and adds
-        the launches of the parts that ran to the counters."""
+        brings its level logs. Rebuilds ``levels`` from the logs, adds
+        the launches of the parts that ran to the counters and gives the
+        rows the levels shaded to the open root span
+        (``attrs["rows_shaded"]``)."""
         with P.span("frame.wait"):
             out = t.cpu()
         self.stats["syncs"] += 1
         self.frame_stats["syncs"] += 1
         with P.span("frame.settle"):
-            self.settle()
+            rows, root = self.settle(), P.current_root()
+            if root is not None:
+                root.attrs["rows_shaded"] = rows
             P.resolve_device_spans()
         return out
 
     def settle(self):
         """Reads the level logs on their way to the host, extending
-        ``levels`` and counting the launches of the parts that ran. After
-        :meth:`to_host` they have arrived; otherwise it waits for them."""
+        ``levels``, counting the launches of the parts that ran and the
+        rows their levels shaded (the logged width, or the level's rows
+        where it ran whole), which it returns. After :meth:`to_host` they
+        have arrived; otherwise it waits for them."""
         pending, self._pending = self._pending, []
+        shaded = 0
         for logs, quantize, done in pending:
             if done is not None:
                 done.synchronize()
             for log in logs.tolist():
                 self._count(("level", 0))
                 self._levels.append((0, self.rows[0], None))
+                shaded += self.rows[0]
                 for level in range(1, len(self.rows)):
                     if log[level] < 0:
                         continue
                     width = log[level] or None
                     self._count((level, width))
                     self._levels.append((level, self.rows[level], width))
+                    shaded += width or self.rows[level]
                 self._count(("finish", quantize))
+        self.stats["rows_shaded"] += shaded
+        return shaded
 
     def _count(self, key):
         if self.capture:

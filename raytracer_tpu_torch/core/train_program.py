@@ -62,7 +62,10 @@ and its backward body reads them. They live in a memory pool of that body
 alone: in the pool the other parts share, a part captured earlier could
 have its temporaries where a later capture keeps such tensors. Every
 width of every level keeps its tensors, so the kept memory of a level is
-up to (1/16 + 1/4 + 1/2 + 1) of its full-width forward's. A forward
+up to (1/16 + 1/4 + 1/2 + 1) of its full-width forward's. That is why a
+blend scene's levels, which the tile program packs, run whole here
+(``render.level_branches`` with ``keeps``, the default): one body a
+level, until a level's bodies can share their kept memory. A forward
 overwrites what the previous one saved: each microbatch's backward must
 run before the next forward, and :meth:`TrainProgram.forward` raises when
 a backward is pending. With ``remat=True`` (the counterpart of

@@ -1432,3 +1432,63 @@ def test_graphed_train_step_bit_equal_eager_with_the_recorder(on):
         assert len(roots) == 3
         assert all(s.attrs["device_ms"] > 0 for s in roots[:2])
         assert "device_ms" not in roots[2].attrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2])
+def test_graphed_blend_frame_packs_and_equals_eager_and_whole_levels(seed):
+    """A blend frame (the flagship scene, its sphere colours moved by a
+    seeded shift, 128x96 in tiles of 4,096 rays: levels of 8,192 to 65,536
+    rows) through the tile program, with the span recorder on, against
+    ``graphs=False`` and against the same tiles through ``color_at`` with
+    gradients on, where every level runs whole: all three bit-equal. The
+    level logs show packed widths, and the rows the frames shaded
+    (``rows_shaded``, the program's and each frame root span's) are their
+    sum."""
+    _require_cuda()
+    import dataclasses
+
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.scene import specs as S
+    from raytracer_tpu_torch.utils import profiling as P
+
+    items, cam = scenes.flagship(128, 96)
+    rng = np.random.default_rng(seed)
+    items = [dataclasses.replace(it, material=it.material.replace(
+        color=tuple(np.clip(np.asarray(it.material.color)
+                            + rng.uniform(-0.05, 0.05, 3), 0, 1))))
+             if isinstance(it, S.Sphere) else it for it in items]
+    sc = build_scene(items, device="cuda")
+    assert sc.static.has_blend and not sc.static.area_steps
+    tile = 4096
+    P.clear()
+    P.enable()
+    try:
+        graphed = [render(sc, cam, tile_rays=tile) for _ in range(2)]
+        roots = [s for s in P.spans() if s.name == "frame"]
+        shaded = TP.program_of(sc).stats["rows_shaded"]
+    finally:
+        P.disable()
+        P.clear()
+    eager = render(sc, cam, tile_rays=tile, graphs=False)
+    order, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, "cuda")
+    inv, consts = R.camera_consts(cam, "cuda")
+    with torch.enable_grad():
+        tiles = [R.color_at(sc, *R.tile_rays(inv, consts, idx, cam.hsize),
+                            sc.static.recursion_limit).detach()
+                 for idx in idx_tiles]
+    img = torch.cat(tiles).cpu().numpy()[:cam.vsize * cam.hsize]
+    whole = np.empty_like(img)
+    whole[order] = img
+    whole = whole.reshape(cam.vsize, cam.hsize, 3)
+    assert whole.std() > 0
+    for got in graphed + [eager]:
+        assert got.tobytes() == whole.tobytes()
+    prog = TP.program_of(sc)
+    levels = prog.levels                  # the last frame's
+    assert any(lv and w < r for lv, r, w in levels), levels
+    assert all(w is not None for lv, _, w in levels if lv)
+    assert shaded == 2 * sum(w or r for _, r, w in levels)
+    assert shaded < sum(r for _, r, _ in levels)
+    assert [s.attrs["rows_shaded"] for s in roots] == [shaded // 2] * 2

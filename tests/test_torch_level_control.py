@@ -76,8 +76,8 @@ def _recorded(monkeypatch, owner):
         calls.append([])
         return real_color_at(*a, **kw)
 
-    def level_width(st, rows, n_live):
-        width = real_width(st, rows, n_live)
+    def level_width(st, rows, n_live, **kw):
+        width = real_width(st, rows, n_live, **kw)
         calls[-1].append((rows, n_live, width))
         return width
 

@@ -68,8 +68,8 @@ def _eager_widths(name, monkeypatch):
         tiles.append([])
         return real_color_at(*a, **kw)
 
-    def level_width(st, rows, n_live):
-        width = real(st, rows, n_live)
+    def level_width(st, rows, n_live, **kw):
+        width = real(st, rows, n_live, **kw)
         tiles[-1].append((rows, width))
         return width
 

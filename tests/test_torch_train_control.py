@@ -260,8 +260,8 @@ def test_levels_from_logs_equal_eager_widths(name, monkeypatch):
             micro.append([])
             return real_color_at(*a, **kw)
 
-        def level_width(st, rows, n_live):
-            width = real(st, rows, n_live)
+        def level_width(st, rows, n_live, **kw):
+            width = real(st, rows, n_live, **kw)
             micro[-1].append((rows, width))
             return width
 
