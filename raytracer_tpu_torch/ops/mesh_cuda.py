@@ -287,7 +287,7 @@ def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
         best.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
         v.data_ptr(), r, int(bool(any_hit)),
         torch.cuda.current_stream(dev).cuda_stream,
-        None if tests is None else tests.data_ptr(),
+        None if tests is None else tests.data_ptr() + 8 * MODES.index(mode),
     )
     _raise_on(err, "mesh_nearest")
     _wrapper.launches += 1
@@ -295,13 +295,15 @@ def _walk(origins, d, inv_d, cap, ids, cnt, ent, planes, bb_chunk, any_hit,
     return t, idx, u, v
 
 
+# K1's modes, in the order of their slots in a device's test counter
+MODES = ("nearest", "any_hit", "behind")
 # the launch counts live on the wrapper; _wrapper stays bound to it even
 # when a caller rebinds the module attribute (e.g. to record calls)
 _wrapper = mesh_nearest
 _wrapper.launches = 0
-_wrapper.launches_by_mode = {"nearest": 0, "any_hit": 0, "behind": 0}
+_wrapper.launches_by_mode = dict.fromkeys(MODES, 0)
 # K1's gated tests, counted by the walk on the card at every launch and
-# graph replay: one int64 a device
+# graph replay: int64 [3] a device, one slot a mode (MODES)
 _TESTS = {}
 
 
@@ -312,26 +314,32 @@ def _tests_counter(dev):
     eagerly before they capture it."""
     counter = _TESTS.get(dev)
     if counter is None and not torch.cuda.is_current_stream_capturing():
-        counter = _TESTS[dev] = torch.zeros(1, dtype=torch.int64,
+        counter = _TESTS[dev] = torch.zeros(len(MODES), dtype=torch.int64,
                                             device=dev)
     return counter
 
 
-def k1_tests() -> int:
+def k1_tests_by_mode() -> dict:
     """K1's ray x triangle tests that the per-ray gates let through, as
     the walk counted them on the card (the tests of
     :func:`mesh_nearest_plain`'s ``count_tests`` ``"ray"``), by every
-    launch and graph replay since the counters were reset. Read only while
-    the span recorder (``utils/profiling``) is on: the device is then
-    synchronized and the counters read; off, 0 without touching the
-    card."""
+    launch and graph replay since the counters were reset: {mode: tests}
+    over MODES. Read only while the span recorder (``utils/profiling``) is
+    on: the device is then synchronized and the counters read; off, 0s
+    without touching the card."""
+    out = dict.fromkeys(MODES, 0)
     if not P.enabled() or not _TESTS:
-        return 0
-    total = 0
+        return out
     for dev, counter in _TESTS.items():
         torch.cuda.synchronize(dev)
-        total += int(counter.item())
-    return total
+        for mode, n in zip(MODES, counter.tolist()):
+            out[mode] += int(n)
+    return out
+
+
+def k1_tests() -> int:
+    """The sum over the modes of :func:`k1_tests_by_mode`."""
+    return sum(k1_tests_by_mode().values())
 
 
 def reset_launches():
@@ -356,9 +364,12 @@ def host_counts() -> dict:
 
 
 def launch_counts() -> dict:
-    """:func:`host_counts` and K1's gated tests counted on the card
-    ("k1_tests", :func:`k1_tests`)."""
-    return {**host_counts(), "k1_tests": k1_tests()}
+    """:func:`host_counts` and K1's gated tests counted on the card: in
+    all ("k1_tests", :func:`k1_tests`) and by mode ("k1_tests_nearest",
+    "k1_tests_any_hit", "k1_tests_behind")."""
+    by_mode = k1_tests_by_mode()
+    return {**host_counts(), "k1_tests": sum(by_mode.values()),
+            **{f"k1_tests_{m}": n for m, n in by_mode.items()}}
 
 
 def add_launches(delta: dict, sign: int = 1):

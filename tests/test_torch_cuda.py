@@ -1323,6 +1323,36 @@ def test_k1_test_counter(mode, rays, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["glass", "dragons"])
+def test_k1_tests_by_mode(scene):
+    """K1's test counter by mode (one slot a mode), over one tile of a
+    frame with the span recorder on: the three slots sum to the count in
+    all; a glass-mesh tile (transparent meshes: the nearest-behind query
+    at every level) counts behind tests, a dragons tile (opaque meshes)
+    launches no behind query and counts none."""
+    _require_cuda()
+    from raytracer_tpu_torch.utils import profiling as P
+
+    items, cam = (scenes.glass_mesh(instances=4, hsize=128, vsize=128)
+                  if scene == "glass" else
+                  scenes.dragons_equiv(instances=2, hsize=128, vsize=128))
+    sc = build_scene(items, device="cuda")
+    P.enable()
+    try:
+        before = MC.launch_counts()
+        render(sc, cam, quantize=True, graphs=False)
+        after = MC.launch_counts()
+    finally:
+        P.disable()
+        P.clear()
+    delta = {k: after[k] - before[k] for k in after}
+    by_mode = [delta[f"k1_tests_{m}"] for m in MC.MODES]
+    assert sum(by_mode) == delta["k1_tests"] > 0
+    assert (delta["k1_tests_behind"] > 0) == (scene == "glass")
+    assert (delta["behind"] > 0) == (scene == "glass")
+
+
+@pytest.mark.cuda
 def test_k1_counts_in_a_graph_captured_with_the_recorder_off():
     """A graph of K1 captured while the span recorder is off counts its
     tests at every replay once the recorder is on, as many as an eager

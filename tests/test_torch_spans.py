@@ -98,7 +98,7 @@ def test_the_bound_drops_the_oldest_and_counts_them(recorder, monkeypatch):
 def test_off_records_nothing_reads_no_clock_and_leaves_the_card(monkeypatch):
     """Off, span() is the shared no-op and reads no clock;
     launch_counts() gives k1_tests 0 without synchronizing or reading a
-    counter. On, it reads them."""
+    counter. On, it reads them: in all and by K1's mode."""
     P.disable()
     P.clear()
 
@@ -116,9 +116,9 @@ def test_off_records_nothing_reads_no_clock_and_leaves_the_card(monkeypatch):
     touched = []
 
     class Counter:
-        def item(self):
-            touched.append("item")
-            return 12
+        def tolist(self):
+            touched.append("tolist")
+            return [7, 0, 5]
 
     monkeypatch.setitem(MC._TESTS, torch.device("cuda", 0), Counter())
     monkeypatch.setattr(torch.cuda, "synchronize",
@@ -129,8 +129,11 @@ def test_off_records_nothing_reads_no_clock_and_leaves_the_card(monkeypatch):
     monkeypatch.setattr(P, "_now", lambda: 0)
     P.enable()
     try:
-        assert MC.launch_counts()["k1_tests"] == 12
-        assert touched == ["sync", "item"]
+        counts = MC.launch_counts()
+        assert counts["k1_tests"] == 12
+        assert (counts["k1_tests_nearest"], counts["k1_tests_any_hit"],
+                counts["k1_tests_behind"]) == (7, 0, 5)
+        assert touched == ["sync", "tolist"]
     finally:
         P.disable()
 
