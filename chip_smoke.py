@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the final line):
 1. device: the card's name and power limit; build the kernels (K1 and its
    pre-pass K1b, the tile graph's level_control_kernel and
    backward_control_kernel, and
-   table_gather's forward kernel and the two routes of its backward) from
+   table_gather's forward kernel and the two routes of its backward, and
+   the pattern stage's pattern_color_kernel) from
    raytracer_tpu_torch/csrc with nvcc for sm_90a, one nvcc per source,
    started together, and print ptxas' report; then, on a line of its own,
    the versions conditional graph nodes depend on (PyTorch, the CUDA it
@@ -40,7 +41,9 @@ Phases (any failure exits non-zero before the final line):
    CUDA graph per tile, core/tile_program.py; the warm-up frame captures
    it): one warm-up frame, the median of 3 timed frames, K1 launches per
    frame by mode (counted from the level logs), table_gather's forward
-   launches (which must not be 0), peak device memory, one
+   launches (which must not be 0), pattern_color_kernel's launches per
+   frame (which must not be 0) and the plain pattern stage's evaluations
+   (which must be 0), peak device memory, one
    PPM each. Then, for the busiest K1
    call of each mode of a mid-frame tile (CUDA events): the call's time,
    its kernel's and its pre-pass's (kernel and torch) times, the CTAs
@@ -48,6 +51,17 @@ Phases (any failure exits non-zero before the final line):
    warp and block (from the plain version), the bound and its share, the
    plain version's time. Then one dragons frame under torch.profiler
    (device busy and idle share, top kernels, the host's runtime calls).
+   (5b) One eager frame of each of the three scenes (graphs=False) with
+   the inputs of every pattern_color_kernel call recorded: a frame's
+   calls must equal the graphed frames' launches per frame, and each
+   call's output must equal the plain version's (render.base_color_plain,
+   pattern_color's chain of about 300 PyTorch kernels and a torch.where)
+   bit for bit on every row. Then the kernel and the plain chain timed
+   on flagship's level-0 body with the most patterned rows (16,384
+   rows), on 16 such bodies (262,144 rows) and on a dragons level-0 body
+   (no pattern): 20 calls replayed from one CUDA graph and a loop of
+   eager calls, the kernels of one call captured alone, and the bound:
+   76 bytes a patterned row, 28 a row without, over 3.35 TB/s.
 6. the CLI path (launch counters zeroed again just before its frames):
    ``python3 -m raytracer_tpu_torch --scene benchmarks/dragons_equiv.yaml
    --obj teapot.obj`` once as a subprocess (teapot.obj written by
@@ -116,7 +130,9 @@ Phases (any failure exits non-zero before the final line):
    dragons_pose gradient under torch.profiler: device busy, idle share,
    the host's cudaGraphLaunch and cudaLaunchKernel calls, and K1's and
    K1b's device and table_gather's device events, each of which must
-   equal its kernel's counter's delta (flagship_train launches no K1),
+   equal its kernel's counter's delta (flagship_train launches no K1;
+   no gradient launches pattern_color_kernel, each evaluates the plain
+   pattern stage),
    each hand-written kernel's device time and events (the step-0
    totals of the kernels line), and no indexing_backward_kernel event in
    the glass and flagship gradients. Then each
@@ -191,8 +207,9 @@ Phases (any failure exits non-zero before the final line):
    mat3_apply unfused (as before the fuzz's repair) against fused, timed
    with CUDA events at a tile's shapes, then flagship and glass_mesh
    frames in turns (graphed; the unfused frames on a second Scene object
-   of the same tables, captured with the unfused function) with each
-   one's profiled device time.
+   of the same tables, captured with the unfused function in intersect
+   and shading; the pattern stage runs in its kernel on both sides) with
+   each one's profiled device time.
 10. the compiled frame, one CUDA graph per tile with the level skip and
    the packed widths taken on the card by conditional nodes: (10a) the
    dragons tile's first nearest K1 call and its K1b pre-pass, each
@@ -225,8 +242,9 @@ Phases (any failure exits non-zero before the final line):
    its IF nodes. (10c) one graphed and one eager dragons_equiv frame
    under torch.profiler: device busy, idle share, the host's graph
    launches, kernel launches and stream syncs, and the device events of
-   K1's walk (by template) and of K1b, which must equal the launch
-   counters' deltas over the same frame. (10d, in a process of its own,
+   K1's walk (by template), of K1b and of pattern_color_kernel, which
+   must equal the launch counters' deltas over the same frame. (10d, in a
+   process of its own,
    where no profiler has run) three graphed dragons frames on the host's
    clock, split into set-up, enqueue, the wait for the frame's one sync
    and the host's scatter of the pixels, and the host's time in one tile
@@ -237,8 +255,9 @@ one JSON object with the kernels' numbers (launches: the main-path runs
 of phases 5 to 10; level_control_kernel's: phases 7 and 10;
 backward_control_kernel's: phase 7;
 table_gather's: phases 5 and 7, by kernel, its times from 7e's largest
-call of a real gradient, each replay's beside them), and the device JSON
-object.
+call of a real gradient, each replay's beside them; pattern_color's:
+phase 5's frames, its times from 5b's flagship body of 16,384 rows,
+the others beside them), and the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
 raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
 """
@@ -576,6 +595,34 @@ def soup_cases(mc, dev):
     return out
 
 
+class PatternRecorder:
+    """Wraps ops.patterns_cuda.pattern_base_color (as
+    render.base_color_of calls it) and keeps a copy of every call's
+    inputs (the points, the shading rows, the material rows) made outside
+    a capture and of more than zero rows, one a level body that takes the
+    kernel; the calls still go through."""
+
+    def __init__(self, pc):
+        self.pc = pc
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = self.pc.pattern_base_color
+        self.pc.pattern_base_color = self
+        return self
+
+    def __exit__(self, *exc):
+        self.pc.pattern_base_color = self.orig
+
+    def __call__(self, scene, over, rows, mat_rows):
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing() and over.shape[0]:
+            self.calls.append((over.detach().clone(), rows.detach().clone(),
+                               mat_rows.detach().clone()))
+        return self.orig(scene, over, rows, mat_rows)
+
+
 def record_tile(scene, cam):
     """Every K1 call of the middle tile's color_at, with copies of its
     inputs."""
@@ -874,6 +921,131 @@ def gather_numbers(ga, table, idx, reps=20):
     return res
 
 
+# bytes a row of pattern_color_kernel must move: its point (12), its
+# inverse transform's three rows and pattern id (52) and its colour out
+# (12) where it has a pattern; else its pattern id, material colour and
+# colour out (28). The tables are a few hundred bytes, read from cache.
+PATTERN_ROW_BYTES = 76
+PLAIN_ROW_BYTES = 28
+
+
+def pattern_numbers(pc, scene, over, rows, mat, reps=50):
+    """5b: pattern_color_kernel and its plain version
+    (render.base_color_plain: pattern_color's chain and the torch.where)
+    on one set of recorded inputs. Both timed over 20 calls replayed from
+    one CUDA graph (the device's pace, ``graph_ms``, ``plain_graph_ms``)
+    and over a loop of eager calls (``eager_ms``, ``plain_eager_ms``); the
+    kernels of one call (the kernel nodes of one call captured alone);
+    the bytes bound over 3.35 TB/s."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.ops import graph_cuda as gc
+    from raytracer_tpu_torch.ops import mesh_cuda as mc
+
+    def kernel():
+        return pc.pattern_base_color(scene, over, rows, mat)
+
+    def plain():
+        return R.base_color_plain(scene, over, rows, mat)
+
+    def kernels_of(fn):
+        fn()
+        torch.cuda.synchronize()
+        before = mc.host_counts()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            fn()
+        mc.add_launches({k: v - before[k]
+                         for k, v in mc.host_counts().items()}, -1)
+        n = gc.node_counts(g)["kernels"]
+        del g
+        return n
+
+    patterned = int((rows[:, R.T.SHADE_PAT_ID] >= 0).sum())
+    n = over.shape[0]
+    nbytes = (patterned * PATTERN_ROW_BYTES
+              + (n - patterned) * PLAIN_ROW_BYTES)
+    res = dict(rows=n, patterned=patterned,
+               graph_ms=graph_ms(kernel), plain_graph_ms=graph_ms(plain),
+               eager_ms=cuda_ms(kernel, reps),
+               plain_eager_ms=cuda_ms(plain, max(reps // 10, 3)),
+               kernel_kernels=kernels_of(kernel),
+               plain_kernels=kernels_of(plain), bytes=nbytes,
+               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    res["bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def pattern_phase(pc, cells, frames):
+    """5b, after phase 5's counts are read: one eager frame of each main-
+    path scene (``graphs=False``) with every pattern_color_kernel call's
+    inputs recorded (PatternRecorder); the calls of a frame must equal
+    phase 5's graphed launches per frame (counted from the level logs),
+    and the plain version's evaluations there must be 0. Each recorded
+    call is run again through the kernel and through the plain version,
+    which must agree bit for bit (the rows that differ and the largest
+    difference are counted). Then pattern_numbers on flagship's level-0
+    body with the most patterned rows (16,384 rows), on 16 such bodies
+    (262,144 rows) and on dragons_equiv's first level-0 body (16,384 rows,
+    none patterned)."""
+    import torch
+
+    from raytracer_tpu_torch.core import render as R
+
+    out = {"frames": {}, "timing": {}}
+    max_err, differing, checked = 0.0, 0, 0
+    kept = {}
+    for label, (scene, cam) in cells.items():
+        with torch.no_grad(), PatternRecorder(pc) as rec:
+            R.render(scene, cam, quantize=True, graphs=False)
+        per_frame = frames[label]["pattern_launches_per_frame"]
+        bodies = len(rec.calls)
+        if per_frame != {"pattern": bodies, "pattern_plain": 0}:
+            raise AssertionError(
+                f"{label}: graphed frames counted {per_frame} a frame; the "
+                f"eager frame ran {bodies} pattern kernel calls")
+        bad = 0
+        with torch.no_grad():
+            for over, rows, mat in rec.calls:
+                k = pc.pattern_base_color(scene, over, rows, mat)
+                p = R.base_color_plain(scene, over, rows, mat)
+                neq = (k.view(torch.int32) != p.view(torch.int32)).any(-1)
+                if bool(neq.any()):
+                    bad += int(neq.sum())
+                    err = torch.nan_to_num((k - p).abs()[neq],
+                                           nan=float("inf"))
+                    max_err = max(max_err, float(err.max()))
+        n_rows = sum(c[0].shape[0] for c in rec.calls)
+        differing += bad
+        checked += n_rows
+        out["frames"][label] = dict(bodies=bodies, rows=n_rows,
+                                    differing_rows=bad)
+        lvl0 = [c for c in rec.calls if c[0].shape[0] == 16384]
+        if label == "flagship":
+            lvl0.sort(key=lambda c: -int((c[1][:, R.T.SHADE_PAT_ID]
+                                          >= 0).sum()))
+            kept["flagship_16384"] = (scene, lvl0[0])
+            kept["flagship_262144"] = (scene, tuple(
+                torch.cat([c[i] for c in lvl0[:16]]) for i in range(3)))
+        elif label == "dragons_equiv":
+            kept["dragons_16384"] = (scene, lvl0[0])
+        del rec
+    log(f"  [5b] pattern_color_kernel against its plain version on every "
+        f"level body of an eager frame: {json.dumps(out['frames'])}")
+    if differing:
+        raise AssertionError(f"pattern_color_kernel: {differing} of "
+                             f"{checked} rows differ from the plain version "
+                             f"(largest difference {max_err})")
+    with torch.no_grad():
+        for name, (scene, (over, rows, mat)) in kept.items():
+            out["timing"][name] = pattern_numbers(pc, scene, over, rows, mat)
+            log(f"  [5b] {name}: {json.dumps(out['timing'][name])}")
+    out.update(max_abs_err=max_err, rows_checked=checked,
+               differing_rows=differing)
+    return out
+
+
 def frame(scene, cam, label, out_dir, mc):
     """Warm-up + median of 3 frames of render() (its default: the tile
     program's CUDA graphs); returns (numbers, the last u8 frame)."""
@@ -887,6 +1059,7 @@ def frame(scene, cam, label, out_dir, mc):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dict(mc.mesh_nearest.launches_by_mode)
+    counts = mc.host_counts()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -894,6 +1067,8 @@ def frame(scene, cam, label, out_dir, mc):
         times.append(time.perf_counter() - t0)
     per_frame = {k: (mc.mesh_nearest.launches_by_mode[k] - before[k]) / 3
                  for k in before}
+    pattern = {k: (mc.host_counts()[k] - counts[k]) / 3
+               for k in ("pattern", "pattern_plain")}
     if img.shape != (cam.vsize, cam.hsize, 3) or img.dtype != np.uint8:
         raise AssertionError(f"{label}: bad frame {img.shape} {img.dtype}")
     if not 0 < float(img.mean()) < 255:
@@ -902,6 +1077,7 @@ def frame(scene, cam, label, out_dir, mc):
     s = statistics.median(times)
     res = dict(s_per_frame=s, px_per_s=cam.hsize * cam.vsize / s,
                frame_times_s=times, k1_launches_per_frame=per_frame,
+               pattern_launches_per_frame=pattern,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                max_memory_reserved=torch.cuda.max_memory_reserved(),
                triangles=scene.static.counts[5],
@@ -1662,11 +1838,12 @@ def train_profiles():
     and one eager dragons_pose gradient under torch.profiler
     (profile_run): device busy, idle share against the same call's time
     unprofiled, the host's cudaGraphLaunch and cudaLaunchKernel calls,
-    K1's and K1b's device events and table_gather's, which must equal the
-    launch counters' deltas (the graphed side's counted from the level
-    logs; flagship_train launches no K1), and each hand-written kernel's
-    device time and events (``device_totals``). Returns the profiles by
-    "cell:side"."""
+    K1's, K1b's, pattern_color_kernel's and table_gather's device events,
+    which must equal the launch counters' deltas (the graphed side's
+    counted from the level logs; flagship_train launches no K1; no
+    gradient launches pattern_color_kernel, and each evaluates the plain
+    pattern stage), and each hand-written kernel's device time and events
+    (``device_totals``). Returns the profiles by "cell:side"."""
     import torch
 
     from raytracer_tpu_torch import scenes
@@ -1720,6 +1897,12 @@ def train_profiles():
                     f"{prof['counted']}")
             if label != "dragons_pose":
                 no_indexing_backward(prof, f"{label} {side} gradient")
+            if counted["pattern"] or not counted["pattern_plain"]:
+                raise AssertionError(
+                    f"{label} {side} gradient: the pattern stage must take "
+                    f"its plain version alone (it needs a gradient): "
+                    f"{counted['pattern']} kernel launches, "
+                    f"{counted['pattern_plain']} plain evaluations")
     return out
 
 
@@ -1965,6 +2148,11 @@ def variant_scene(scene):
     return dataclasses.replace(scene)
 
 
+def never_packs(static, rows, **kw):
+    """render.packs' stand-in where 8a turns packing off."""
+    return False
+
+
 def packing_ab(scene, cam, label):
     """8a: whole frames with the packed levels off (render.packs forced
     False, on a variant_scene) and on, in turns (off, on, on, off) after
@@ -1981,7 +2169,7 @@ def packing_ab(scene, cam, label):
     imgs = {}
     try:
         for mode in ("unpacked", "packed", "packed", "unpacked"):
-            R.packs = real if mode == "packed" else (lambda st, r: False)
+            R.packs = real if mode == "packed" else never_packs
             if mode not in imgs:                                # warm-up
                 imgs[mode] = R.render(scenes_[mode], cam, quantize=True)
             t0 = time.perf_counter()
@@ -2015,10 +2203,10 @@ def packing_steps(runs):
             step, state, _, _ = runs[label]
             res = {m: dict(s=[], max_memory_allocated=[], device_busy_s=[])
                    for m in ("unpacked", "packed")}
-            R.packs = lambda st, r: False
+            R.packs = never_packs
             step(state)                              # builds its program
             for mode in ("unpacked", "packed", "packed", "unpacked"):
-                R.packs = real if mode == "packed" else (lambda st, r: False)
+                R.packs = real if mode == "packed" else never_packs
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
@@ -2358,20 +2546,21 @@ def mat3_ab(dev, glass, g_cam):
     (unfused, fused, fused, unfused, after a warm-up frame each; graphed,
     the unfused frames on a variant_scene), one more frame of each under
     torch.profiler for its device busy time, and the pixels where the two
-    frames differ."""
+    frames differ. A frame's pattern stage runs in pattern_color_kernel,
+    whose transforms are fused (fmaf) on both sides."""
     import numpy as np
     import torch
 
     from raytracer_tpu_torch import scenes
     from raytracer_tpu_torch.core import intersect as I
-    from raytracer_tpu_torch.core import patterns, shading
+    from raytracer_tpu_torch.core import shading
     from raytracer_tpu_torch.core.render import render
     from raytracer_tpu_torch.scene import build_scene
 
     fns = {"unfused": unfused_mat3_apply, "fused": I.mat3_apply}
 
     def use(mode):
-        for mod in (I, patterns, shading):
+        for mod in (I, shading):
             mod.mat3_apply = fns[mode]
 
     g = torch.Generator().manual_seed(1)
@@ -2926,12 +3115,14 @@ def control_nodes(gc, tg, children, levels, backward=None):
     return nodes
 
 
-# K1's and K1b's device kernels as the profiler names them, and the
-# launch counters they stand for: mesh_walk_kernel<true> is the any-hit
-# walk, <false> the nearest and behind walks
+# K1's, K1b's and the pattern stage's device kernels as the profiler
+# names them, and the launch counters they stand for:
+# mesh_walk_kernel<true> is the any-hit walk, <false> the nearest and
+# behind walks
 PROFILED_KERNELS = {"mesh_walk_kernel<false>": ("nearest", "behind"),
                     "mesh_walk_kernel<true>": ("any_hit",),
-                    "live_supergroups_kernel": ("prepass",)}
+                    "live_supergroups_kernel": ("prepass",),
+                    "pattern_color_kernel": ("pattern",)}
 # every hand-written kernel as the profiler names it (a name holding the
 # string): its device time and events are summed in the profiles of a
 # dragons_equiv frame (10c) and of one gradient of each train cell (7d's
@@ -2941,16 +3132,17 @@ HAND_KERNELS = ("table_gather_kernel", "table_gather_grad_kernel",
                 "table_gather_add_kernel", "table_gather_finish_kernel",
                 "live_supergroups_kernel", "mesh_walk_kernel<false>",
                 "mesh_walk_kernel<true>", "mesh_finish_kernel",
-                "level_control_kernel", "backward_control_kernel")
+                "level_control_kernel", "backward_control_kernel",
+                "pattern_color_kernel")
 
 
 def profiled_vs_counted(mc, scene, cam, graphs, s_unprofiled):
     """10c: one dragons_equiv frame under torch.profiler (after the
     phase's counts are read): device busy, idle share and the host's
     runtime calls (graph launches and stream syncs among them), and the
-    profiler's device events of K1's and K1b's kernels against the launch
-    counters' deltas over the same frame (graphed: counted from the level
-    logs), which must be equal."""
+    profiler's device events of K1's, K1b's and pattern_color_kernel's
+    kernels against the launch counters' deltas over the same frame
+    (graphed: counted from the level logs), which must be equal."""
     from raytracer_tpu_torch.core import render as R
 
     before = mc.launch_counts()
@@ -3171,6 +3363,7 @@ def main(argv=None):
     from raytracer_tpu_torch.ops import gather_cuda as GA
     from raytracer_tpu_torch.ops import graph_cuda as GC
     from raytracer_tpu_torch.ops import mesh_cuda as MC
+    from raytracer_tpu_torch.ops import patterns_cuda as PC
     from raytracer_tpu_torch.scene import build_scene, specs as S
     from raytracer_tpu_torch.scene.yaml_scene import parse_scene
 
@@ -3194,13 +3387,13 @@ def main(argv=None):
     log(f"[1] device: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:     # one nvcc per source, together
-        builds = [pool.submit(m.build_library) for m in (MC, GC, GA)]
-        (lib_path, build_log), (tg_path, _), (ga_path, ga_log) = [
-            b.result() for b in builds]
-    log(f"  built {lib_path.name}, {tg_path.name} and {ga_path.name} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in (build_log + ga_log).splitlines():
+    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, together
+        builds = [pool.submit(m.build_library) for m in (MC, GC, GA, PC)]
+        ((lib_path, build_log), (tg_path, _), (ga_path, ga_log),
+         (pc_path, pc_log)) = [b.result() for b in builds]
+    log(f"  built {lib_path.name}, {tg_path.name}, {ga_path.name} and "
+        f"{pc_path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in (build_log + ga_log + pc_log).splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "error",
                                    "Compiling entry")):
             log("  ptxas:", line.strip())
@@ -3307,15 +3500,20 @@ def main(argv=None):
     results["dragons_equiv"], dragons_img = frame(
         dragons, d_cam, "dragons_equiv", out_dir, MC)
     results["glass_mesh"], _ = frame(glass, g_cam, "glass_mesh", out_dir, MC)
-    results["flagship"], _ = frame(build_scene(f_items, device=dev), f_cam,
-                                   "flagship", out_dir, MC)
+    flagship = build_scene(f_items, device=dev)
+    results["flagship"], _ = frame(flagship, f_cam, "flagship", out_dir, MC)
     launches = MC.mesh_nearest.launches
     by_mode = dict(MC.mesh_nearest.launches_by_mode)
     pre_launches = MC.live_supergroups.launches
     gather_launches = GA.launch_counts()
+    pattern_launches = PC.launch_counts()
     log(f"  K1 launches on the main path: {launches} {by_mode}; "
         f"K1b launches: {pre_launches}; table_gather launches: "
-        f"{gather_launches}")
+        f"{gather_launches}; pattern stage: {pattern_launches}")
+    if pattern_launches["pattern"] == 0 or pattern_launches["pattern_plain"]:
+        raise AssertionError(f"the frames' pattern stage did not take "
+                             f"pattern_color_kernel alone: "
+                             f"{pattern_launches}")
     if pre_launches == 0:
         raise AssertionError("the pre-pass kernel was not launched")
     if gather_launches["gather"] == 0:
@@ -3338,6 +3536,10 @@ def main(argv=None):
     prof = profile_run(lambda: render(dragons, d_cam, quantize=True),
                        results["dragons_equiv"]["s_per_frame"])
     log(f"  dragons_equiv frame under torch.profiler: {json.dumps(prof)}")
+    pattern = pattern_phase(PC, {"dragons_equiv": (dragons, d_cam),
+                                 "glass_mesh": (glass, g_cam),
+                                 "flagship": (flagship, f_cam)}, results)
+    del flagship
 
     lap(5)
 
@@ -3503,8 +3705,31 @@ def main(argv=None):
             "bwd_graph_ms", "library_fwd_ms", "library_fwd_graph_ms",
             "index_add_ms", "index_add_graph_ms")}
             for name, res in grad["gather"].items() if name != "main"},
+    }, {
+        "name": "pattern_color",
+        "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/patterns.cu",
+        "replaces": "raytracer_tpu/core/patterns.py:28",
+        "replaces_kind": "XLA, not Pallas",
+        "launches": pattern_launches["pattern"],
+        "plain_launches": pattern_launches["pattern_plain"],
+        "max_abs_err": pattern["max_abs_err"],
+        "rows_checked": pattern["rows_checked"],
+        "call": "flagship_16384",
+        **{k: pattern["timing"]["flagship_16384"][k] for k in (
+            "rows", "patterned", "graph_ms", "bound_ms", "bound_by",
+            "bound_share", "plain_kernels")},
+        "ms": pattern["timing"]["flagship_16384"]["graph_ms"],
+        "plain_ms": pattern["timing"]["flagship_16384"]["plain_graph_ms"],
+        "eager_ms": pattern["timing"]["flagship_16384"]["eager_ms"],
+        "plain_eager_ms":
+            pattern["timing"]["flagship_16384"]["plain_eager_ms"],
+        "library_ms": None,
+        "device": device("pattern_color_kernel"),
+        "by_call": pattern["timing"],
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
+                   pattern=pattern,
                    device_totals=totals,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
                    phase8=p8, fuzz=fuzz, compiled=p10, phase_s=phase_s,

@@ -72,6 +72,7 @@ from raytracer_tpu_torch.core import intersect as I
 from raytracer_tpu_torch.core import shading as SH
 from raytracer_tpu_torch.core import types as T
 from raytracer_tpu_torch.core.patterns import pattern_color
+from raytracer_tpu_torch.ops import patterns_cuda as PC
 from raytracer_tpu_torch.utils import profiling as P
 
 
@@ -217,6 +218,33 @@ def _seeded(generator, device):
     return generator
 
 
+def base_color_plain(scene: T.Scene, over, rows, mat_rows):
+    """The base colour of a level's shading points in plain torch: each
+    point's pattern colour (:func:`pattern_color`) where the shading row's
+    pattern id (column ``types.SHADE_PAT_ID`` of ``rows``, whose columns
+    ``types.SHADE_INV`` are the inverse transform) is >= 0, else its
+    material's colour. Counted in
+    ``patterns_cuda.LAUNCHES["pattern_plain"]``."""
+    PC.LAUNCHES["pattern_plain"] += 1
+    pat_id = rows[:, T.SHADE_PAT_ID].to(scene.pattern_id.dtype)
+    pat = pattern_color(scene, None, over, pid=pat_id,
+                        inv=rows[:, T.SHADE_INV].reshape(-1, 4, 4))
+    return torch.where((pat_id >= 0)[:, None], pat, mat_rows[:, T.MAT_COLOR])
+
+
+def base_color_of(scene: T.Scene, over, rows, mat_rows):
+    """:func:`shade_level`'s base colour at the points ``over`` [R, 3],
+    from its shading rows ``rows`` [R, types.SHADE_NCOLS] and material
+    rows ``mat_rows``:
+    the kernel ``ops/patterns_cuda.pattern_base_color`` where
+    ``patterns_cuda.takes_kernel`` holds (on the card, where no gradient
+    flows through the stage: every frame), else
+    :func:`base_color_plain`. The two give the same bits on the card."""
+    if PC.takes_kernel(scene, over, rows, mat_rows):
+        return PC.pattern_base_color(scene, over, rows, mat_rows)
+    return base_color_plain(scene, over, rows, mat_rows)
+
+
 def shade_level(scene: T.Scene, o, d, weight, jitter=None):
     """Trace + shade one wavefront level. ``jitter``: the level's random
     area-light draws (:func:`draw_jitter`, [R, S, 4] per area light); None
@@ -252,12 +280,11 @@ def shade_level(scene: T.Scene, o, d, weight, jitter=None):
         scene.normal_mat.reshape(g_c, 9),
         scene.mat_id.to(torch.float32)[:, None],
         scene.pattern_id.to(torch.float32)[:, None],
-    ], 1)                                            # [Gc, 27]
-    rows = I.table_gather(src_tab, tgid)             # [R, 27]
-    inv_rows = rows[:, :16].reshape(-1, 4, 4)
-    nmat_rows = rows[:, 16:25].reshape(-1, 3, 3)
-    mat_idx = rows[:, 25].long()
-    pat_id = rows[:, 26].to(scene.pattern_id.dtype)
+    ], 1)                                    # [Gc, T.SHADE_NCOLS]
+    rows = I.table_gather(src_tab, tgid)     # [R, T.SHADE_NCOLS]
+    inv_rows = rows[:, T.SHADE_INV].reshape(-1, 4, 4)
+    nmat_rows = rows[:, T.SHADE_NMAT].reshape(-1, 3, 3)
+    mat_idx = rows[:, T.SHADE_MAT_ID].long()
 
     normalv = SH.normal_at(
         scene, gid, point, u, v, tgid=tgid, inv=inv_rows, nmat=nmat_rows
@@ -271,9 +298,7 @@ def shade_level(scene: T.Scene, o, d, weight, jitter=None):
     over_sh, _ = park_rays(over, d, has)
 
     mat_rows = I.table_gather(scene.mat, mat_idx)
-    pat = pattern_color(scene, gid, over, pid=pat_id, inv=inv_rows)
-    has_pat = pat_id >= 0
-    base_color = torch.where(has_pat[:, None], pat, mat_rows[:, T.MAT_COLOR])
+    base_color = base_color_of(scene, over, rows, mat_rows)
 
     surface = torch.zeros_like(base_color)
     n_point = scene.plight_pos.shape[0]

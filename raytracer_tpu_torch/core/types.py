@@ -44,6 +44,13 @@ MAT_AMBIENT, MAT_DIFFUSE, MAT_SPECULAR, MAT_SHININESS = 3, 4, 5, 6
 MAT_REFLECTIVE, MAT_TRANSPARENCY, MAT_REFRACTIVE = 7, 8, 9
 MAT_NCOLS = 10
 
+# Shading row columns (render.shade_level's one gather of the per-source
+# tables; ops/patterns_cuda.py passes the pattern stage's to its kernel)
+SHADE_INV = slice(0, 16)       # the inverse transform, row-major 4x4
+SHADE_NMAT = slice(16, 25)     # the normal matrix, row-major 3x3
+SHADE_MAT_ID, SHADE_PAT_ID = 25, 26
+SHADE_NCOLS = 27
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneStatic:

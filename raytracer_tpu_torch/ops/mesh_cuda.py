@@ -32,6 +32,7 @@ import torch
 
 from raytracer_tpu_torch.constants import EPSILON
 from raytracer_tpu_torch.ops import gather_cuda as TG
+from raytracer_tpu_torch.ops import patterns_cuda as PC
 from raytracer_tpu_torch.utils import profiling as P
 
 RT = 256           # rays per subtile = threads per CTA (one 16x16 block)
@@ -343,8 +344,8 @@ def k1_tests() -> int:
 
 
 def reset_launches():
-    """Zeroes the launch counters of K1, K1b and table_gather, and K1's
-    test counters on the card."""
+    """Zeroes the launch counters of K1, K1b, table_gather and the pattern
+    stage, and K1's test counters on the card."""
     _wrapper.launches = 0
     live_supergroups.launches = 0
     for k in _wrapper.launches_by_mode:
@@ -352,15 +353,19 @@ def reset_launches():
     for counter in _TESTS.values():
         counter.zero_()
     TG.reset_launches()
+    PC.reset_launches()
 
 
 def host_counts() -> dict:
     """The launch counters kept on the host: K1's ("k1" and by mode),
-    K1b's ("prepass") and table_gather's, one a kernel ("gather" and
+    K1b's ("prepass"), table_gather's, one a kernel ("gather" and
     "gather_*": ops/gather_cuda.launch_counts, with the bytes its calls
-    must move, "gather_bytes")."""
+    must move, "gather_bytes"), and the pattern stage's ("pattern", its
+    kernel's launches, and "pattern_plain", its plain evaluations:
+    ops/patterns_cuda.launch_counts)."""
     return {"k1": _wrapper.launches, **_wrapper.launches_by_mode,
-            "prepass": live_supergroups.launches, **TG.launch_counts()}
+            "prepass": live_supergroups.launches, **TG.launch_counts(),
+            **PC.launch_counts()}
 
 
 def launch_counts() -> dict:
@@ -384,6 +389,7 @@ def add_launches(delta: dict, sign: int = 1):
         _wrapper.launches_by_mode[k] += sign * delta[k]
     live_supergroups.launches += sign * delta["prepass"]
     TG.add_launches(delta, sign)
+    PC.add_launches(delta, sign)
 
 
 def _cross(a, b):

@@ -15,6 +15,9 @@ them.
 * :func:`flagship` — ``__graft_entry__._flagship_scene`` and its camera.
 * :func:`mesh_grad` — one mesh instance, a sphere and a plane (opaque or
   glass): the scene of the gradient checks through the mesh query.
+* :func:`every_pattern` — a grid of spheres, one for each pattern kind,
+  uv mapping and uv pattern kind (two images among them), over a plane
+  with none: the scene of the pattern kernel's checks.
 
 For the CLI path, :func:`write_obj` writes the generated mesh as the OBJ
 file that the YAML scenes name (``teapot.obj``), and two YAML scene texts
@@ -234,6 +237,56 @@ def flagship(hsize=1280, vsize=720):
     cam = Camera(hsize, vsize, math.pi / 3).with_transform(
         tf.view_transform((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)))
     return [light, floor, middle, left, right], cam
+
+
+# ----------------------------------------------------------- pattern scene
+
+def every_pattern(hsize=96, vsize=64):
+    """Every pattern kind (striped, gradient, ring, checker, xyz_rgb;
+    texture maps in each of the three uv mappings with each of the three
+    uv pattern kinds; two cube maps, one with every uv kind on its faces),
+    one sphere each in a grid over a plane with no pattern, one point
+    light. The first patterns have no transform, so pattern space is the
+    object space of a sphere at the origin; the last two are a scaled and
+    rotated striped and gradient. The two images, 7x5 and 4x3 texels of
+    seeded colours, are padded to one table of 7x5."""
+    rng = np.random.default_rng(5)
+    images = [rng.random((5, 7, 3)).astype(np.float32),
+              rng.random((3, 4, 3)).astype(np.float32)]
+    uvs = [S.UvPatternSpec("checker", width=3, height=2, a=(1, 1, 1),
+                           b=(0.1, 0.2, 0.3)),
+           S.UvPatternSpec("align_check", main=(1, 1, 0), ul=(0, 1, 1),
+                           ur=(1, 0, 0), bl=(0, 0, 1), br=(1, 0.5, 0)),
+           S.UvPatternSpec("image", image=images[0])]
+    warp = tf.Transform().rotation_y(0.7).scaling(0.6, 1.3, 0.9).matrix
+    patterns = [S.Pattern(kind, a=(0.9, 0.3, 0.1), b=(0.1, 0.4, 0.8))
+                for kind in ("striped", "gradient", "ring", "checker",
+                             "xyz_rgb")]
+    patterns += [S.Pattern("texture_map", mapping=m, uv_pattern=uv)
+                 for m in ("spherical", "planar", "cylindrical")
+                 for uv in uvs]
+    patterns.append(S.Pattern(
+        "cube_map", left=uvs[0], right=uvs[1], front=uvs[2],
+        back=S.UvPatternSpec("image", image=images[1]), up=uvs[1],
+        down=uvs[0]))
+    patterns.append(S.Pattern("cube_map", **{
+        f: uvs[1] for f in ("left", "right", "front", "back", "up", "down")}))
+    patterns += [S.Pattern("striped", a=(1, 1, 1), b=(0, 0, 0),
+                           transform=warp),
+                 S.Pattern("gradient", a=(1, 0, 0), b=(0, 0, 1),
+                           transform=warp)]
+    items = [S.PointLight(position=(-10.0, 10.0, -10.0)),
+             S.Plane(transform=tf.translation(0.0, -1.0, 0.0),
+                     material=S.Material(color=(0.5, 0.5, 0.5)))]
+    for i, pattern in enumerate(patterns):
+        x, y = i % 6 - 2.5, i // 6
+        items.append(S.Sphere(
+            transform=tf.Transform().scaling(0.45, 0.45, 0.45)
+            .translation(x, y - 0.5, 0.0).matrix,
+            material=S.Material(pattern=pattern)))
+    cam = Camera(hsize, vsize, math.pi / 3).with_transform(
+        tf.view_transform((0.0, 1.0, -7.0), (0.0, 0.7, 0.0), (0.0, 1.0, 0.0)))
+    return items, cam
 
 
 # ---------------------------------------------------------- gradient scene

@@ -2,7 +2,9 @@
 version, a frame rendered on cuda against the same frame on the CPU, and
 the mesh query's gradient and a render loss's gradients on cuda against
 the CPU; table_gather's kernels against their plain versions, captured in
-a graph, and in a flagship train step graphed against eager.
+a graph, and in a flagship train step graphed against eager; the pattern
+stage's kernel against its plain version bit for bit, and which frames and
+steps take it.
 
 Every test here carries the ``cuda`` marker and skips itself when there is
 no CUDA device. The file imports neither JAX nor the JAX package, so on a
@@ -1522,3 +1524,211 @@ def test_graphed_blend_frame_packs_and_equals_eager_and_whole_levels(seed):
     assert shaded == 2 * sum(w or r for _, r, w in levels)
     assert shaded < sum(r for _, r, _ in levels)
     assert [s.attrs["rows_shaded"] for s in roots] == [shaded // 2] * 2
+
+
+# ------------------------------------------------ the pattern stage's kernel
+
+def _pattern_scene():
+    items, cam = scenes.every_pattern()
+    sc = build_scene(items, device="cuda")
+    assert set(sc.pat_kind.tolist()) == set(range(7))
+    assert set(sc.pat_map.tolist()) == set(range(3))
+    assert set(sc.uv_kind.tolist()) == set(range(3))
+    return sc, cam
+
+
+def _edge_points():
+    """Points in pattern space on the patterns' edges: integer and
+    half-integer lattices, signed zeros (radius 0), cube-map face ties,
+    texel edges of both images under the planar map and on the cube's
+    front and back faces, the poles and the seam of the spherical map."""
+    ax = np.arange(-3.0, 3.5, 0.5)
+    pts = [np.stack(np.meshgrid(ax, ax, ax), -1).reshape(-1, 3)]
+    pts.append([[-0.0, 0.0, 0.0], [0.0, -0.0, -0.0], [-0.0, -0.0, -0.0]])
+    for a in (0.7, 1.0, 2.0):
+        for base in ((a, a, a), (a, a, 0.3), (a, 0.3, a), (0.3, a, a),
+                     (a, a, 0.0), (a, 0.0, a), (0.0, a, a)):
+            for sx in (1, -1):
+                for sy in (1, -1):
+                    for sz in (1, -1):
+                        pts.append([[sx * base[0], sy * base[1],
+                                     sz * base[2]]])
+    edges = np.concatenate([(np.arange(9) - 0.5) / 6, (np.arange(6) - 0.5) / 3,
+                            [0.0, -1e-7, 1.0, -1.0, 1 - 1e-7, 0.5]])
+    xz = np.stack(np.meshgrid(edges, edges), -1).reshape(-1, 2)
+    pts.append(np.stack([xz[:, 0], np.full(len(xz), 0.3), xz[:, 1]], -1))
+    face = 2 * edges[(edges >= 0) & (edges <= 1)] - 1
+    fxy = np.stack(np.meshgrid(face, face), -1).reshape(-1, 2)
+    for z in (1.0, -1.0):
+        pts.append(np.stack([0.999 * fxy[:, 0], 0.999 * fxy[:, 1],
+                             np.full(len(fxy), z)], -1))
+    pts.append([[0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1], [1, 0, 0],
+                [-1, 0, 0], [-0.0, 0.5, -1], [0.0, 0.5, -1], [-0.0, 0, -1],
+                [1e-30, 0, -1], [-1e-30, 0, -1]])
+    return np.concatenate([np.asarray(p, np.float64) for p in pts])
+
+
+def _pattern_case(sc, seed):
+    """Inputs of the pattern stage for every pattern id of ``sc`` and -1:
+    (over [R, 3], rows [R, 27], mat_rows [R, 10]) on cuda. Each id meets
+    the edge points with an identity inverse transform, and 256 random
+    points under a random affine inverse transform; mat_rows are random."""
+    rng = np.random.default_rng(seed)
+    edge = _edge_points()
+    ids = np.arange(-1, sc.pat_kind.shape[0])
+    over, inv, pid = [], [], []
+    for i in ids:
+        over.append(edge)
+        inv.append(np.broadcast_to(np.eye(4), (len(edge), 4, 4)))
+        m = np.zeros((256, 4, 4))
+        m[:, :3] = rng.normal(0, 0.8, (256, 3, 4))
+        m[:, 3, 3] = 1.0
+        over.append(rng.uniform(-2.5, 2.5, (256, 3)))
+        inv.append(m)
+        pid.append(np.full(len(edge) + 256, i))
+    over = np.concatenate(over).astype(np.float32)
+    r = len(over)
+    rows = np.zeros((r, 27), np.float32)
+    rows[:, :16] = np.concatenate(inv).reshape(r, 16)
+    rows[:, 26] = np.concatenate(pid)
+    mat = rng.random((r, 10)).astype(np.float32)
+    cu = lambda x: torch.as_tensor(x, device="cuda")  # noqa: E731
+    return cu(over), cu(rows), cu(mat)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _assert_bit_equal(sc, got, want, rows):
+    same = (_bits(got) == _bits(want)).all(-1)
+    if not bool(same.all()):
+        pid = rows[:, 26].long()
+        bad = pid[~same].cpu().numpy()
+        kinds = sc.pat_kind.cpu().numpy()[np.maximum(bad, 0)]
+        raise AssertionError(
+            f"{int((~same).sum())} of {len(same)} rows differ; pattern ids "
+            f"{sorted(set(bad.tolist()))} (kinds "
+            f"{sorted(set(kinds.tolist()))}); first: "
+            f"{got[~same][:3].tolist()} vs {want[~same][:3].tolist()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2])
+def test_pattern_kernel_bit_equal_plain(seed):
+    """pattern_color_kernel against render.base_color_plain (pattern_color
+    and the torch.where on the pattern id) on the card, bit for bit: every
+    pattern kind, uv mapping and uv kind of scenes.every_pattern, two
+    images among them, and pattern id -1, at the edge points and at random
+    points under random inverse transforms; the shading rows also read
+    through a row stride of 32, and one launch a call."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.ops import patterns_cuda as PC
+
+    sc, _ = _pattern_scene()
+    over, rows, mat = _pattern_case(sc, seed)
+    want = R.base_color_plain(sc, over, rows, mat)
+    before = PC.LAUNCHES["pattern"]
+    got = PC.pattern_base_color(sc, over, rows, mat)
+    torch.cuda.synchronize()
+    assert PC.LAUNCHES["pattern"] == before + 1
+    _assert_bit_equal(sc, got, want, rows)
+    nopat = rows[:, 26] < 0
+    assert torch.equal(got[nopat], mat[nopat, :3])
+    wide = torch.cat([rows, rows[:, :5]], 1)[:, :27]
+    assert wide.stride(0) == 32
+    _assert_bit_equal(sc, PC.pattern_base_color(sc, over, wide, mat), want,
+                      rows)
+
+
+@pytest.mark.cuda
+def test_pattern_kernel_graph_replay_equals_eager():
+    """The kernel captured in a CUDA graph on static buffers and replayed
+    on two fresh inputs gives the eager call's bits on each."""
+    _require_cuda()
+    from raytracer_tpu_torch.ops import patterns_cuda as PC
+
+    sc, _ = _pattern_scene()
+    static = [x.clone() for x in _pattern_case(sc, 3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        PC.pattern_base_color(sc, *static)           # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PC.pattern_base_color(sc, *static)
+    for seed in (4, 5):
+        fresh = _pattern_case(sc, seed)
+        for buf, x in zip(static, fresh):
+            buf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = PC.pattern_base_color(sc, *fresh)
+        assert torch.equal(_bits(out), _bits(eager))
+
+
+@pytest.mark.cuda
+def test_patterned_frames_on_cuda_take_the_kernel():
+    """scenes.flagship at 128x72 (a checkered floor) and every_pattern on
+    the card within the CPU port's u8 budget (at most 0.5% of pixels more
+    than one step apart), every level body through the kernel ("pattern"
+    counts them, "pattern_plain" stays 0; counted after the frame that
+    captures the program, whose warm-up runs every body), the CPU through
+    the plain version only."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import tile_program as TP
+
+    for items, cam in (scenes.flagship(128, 72), scenes.every_pattern()):
+        frames = {}
+        for dev in ("cuda", "cpu"):
+            sc = build_scene(items, device=dev)
+            if dev == "cuda":
+                render(sc, cam, quantize=True)
+            MC.reset_launches()
+            frames[dev] = render(sc, cam, quantize=True)
+            counts = MC.launch_counts()
+            bodies = len(TP.program_of(sc).levels)
+            if dev == "cuda":
+                assert (counts["pattern"], counts["pattern_plain"]) == (
+                    bodies, 0)
+            else:
+                assert (counts["pattern"], counts["pattern_plain"]) == (
+                    0, bodies)
+            assert bodies > 0
+        diff = np.abs(frames["cuda"].astype(int)
+                      - frames["cpu"].astype(int)).max(-1)
+        assert frames["cuda"].std() > 5
+        assert (diff > 1).mean() <= 0.005
+
+
+@pytest.mark.cuda
+def test_train_steps_on_cuda_take_the_plain_patterns():
+    """A graphed flagship train step (its tables require grad) and a
+    gradient through the rays (a pose) on the card: every level body
+    through the plain version, the kernel never; the same step's frame
+    under no_grad through the kernel only."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.parallel import render_loss_and_grad, train_step
+
+    items, cam = scenes.flagship(64, 48)
+    sc = build_scene(items, device="cuda")
+    o, d = ray_grid(cam, device="cuda")
+    target = torch.full_like(o, 0.2)
+    for _ in range(2):                   # the first builds the program
+        MC.reset_launches()
+        train_step(sc, o, d, target, lr=0.05, n_micro=2, remat=False)
+        torch.cuda.synchronize()
+        counts = MC.launch_counts()
+        assert counts["pattern"] == 0 and counts["pattern_plain"] > 0
+    MC.reset_launches()
+    og, dg = o.clone().requires_grad_(), d.clone().requires_grad_()
+    render_loss_and_grad({}, lambda _: sc, og, dg, target)
+    counts = MC.launch_counts()
+    assert counts["pattern"] == 0 and counts["pattern_plain"] > 0
+    MC.reset_launches()
+    render(sc, cam, quantize=True)
+    counts = MC.launch_counts()
+    assert counts["pattern"] > 0 and counts["pattern_plain"] == 0
