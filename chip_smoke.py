@@ -176,7 +176,7 @@ Phases (any failure exits non-zero before the final line):
    well-formed P3 PPM, timed. Then, their K1 launches kept out of the
    kernels line: 8a's level-2 inputs through _packed_shade_level and
    shade_level, timed with CUDA events, the outputs equal once
-   un-permuted; each scene's whole graphed frame with packing off (on a
+   parked; each scene's whole graphed frame with packing off (on a
    second Scene object of the same tables) and on in turns (off, on, on,
    off; host clock), the u8 frames compared; one
    glass_train and one dragons_pose step of phase 7 with packing off and
@@ -217,11 +217,10 @@ Phases (any failure exits non-zero before the final line):
    moved and turned by a little noise) copied into their static buffers:
    K1 against the plain version at phase 2's tolerances, K1b exactly;
    level_control_kernel in a toy tile graph of a 16,384-ray packing
-   level (four IF nodes, trivial bodies) against the host's choice of
-   branch (render.level_predicates, then render.taken_branch) and against
-   its plain version (graph_cuda.level_control_plain) on the same live
-   counts (flags, log entry and the body run, exactly), timed; and a toy
-   level of the train program's shape, a forward whose
+   level (four IF nodes, trivial bodies) against its plain version
+   (graph_cuda.level_control_plain) and render.level_width on the same
+   live counts (flags, log entry and the body run, exactly), timed; and a
+   toy level of the train program's shape, a forward whose
    level_control_kernel writes five flags and a backward tile graph whose
    backward_control_kernel sets five IF bodies (gather vjps) from them,
    against the host's choice and gradient (exactly), timed. (10b,
@@ -2065,30 +2064,31 @@ def parked(out):
 def packed_levels(scene, cam, label):
     """8a: the middle tile's color_at, its packed levels recorded (live
     share and width of each). Returns (the numbers, each level's inputs
-    and keywords)."""
+    and width)."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
 
     levels = []
-    real = R._packed_shade_level
+    real = R.shade_step
 
-    def spy(scene_, o, d, w, jitter=None, **kw):
-        levels.append(dict(o=o.detach().clone(), d=d.detach().clone(),
-                           w=w.detach().clone(), **kw))
-        return real(scene_, o, d, w, jitter, **kw)
+    def spy(scene_, o, d, w, jitter, *, width):
+        if width is not None:
+            levels.append(dict(o=o.detach().clone(), d=d.detach().clone(),
+                               w=w.detach().clone(), width=width))
+        return real(scene_, o, d, w, jitter, width=width)
 
     tile = min(R.pick_tile_rays(scene.static), cam.hsize * cam.vsize)
     _, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, scene.device)
     inv, consts = R.camera_consts(cam, scene.device)
-    R._packed_shade_level = spy
+    R.shade_step = spy
     try:
         with torch.no_grad():
             o, d = R.tile_rays(inv, consts, idx_tiles[len(idx_tiles) // 2],
                                cam.hsize)
             R.color_at(scene, o, d)
     finally:
-        R._packed_shade_level = real
+        R.shade_step = real
     res = dict(tile=tile, levels=[dict(
         level=i + 1, live=int((lv["w"] > 0).any(-1).sum()),
         live_share=float((lv["w"] > 0).any(-1).float().mean()),
@@ -2104,8 +2104,7 @@ def packed_levels(scene, cam, label):
 def level2_timing(scene, label, res, levels):
     """8a, after the main path's counts are read: level 2's recorded
     inputs through _packed_shade_level (at the width color_at chose) and
-    shade_level, timed with CUDA events, the outputs equal once
-    un-permuted and parked."""
+    shade_level, timed with CUDA events, the outputs equal once parked."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
@@ -2116,10 +2115,7 @@ def level2_timing(scene, label, res, levels):
     width = lv["width"]
     with torch.no_grad():
         full = parked(R.shade_level(scene, lv["o"], lv["d"], lv["w"]))
-        out = packed(scene, lv["o"], lv["d"], lv["w"], thread_perm=True,
-                   width=width)
-        back = torch.argsort(out[3])
-        got = [x[back] for x in parked(out)]
+        got = parked(packed(scene, lv["o"], lv["d"], lv["w"], width=width))
         differ = [int((a != b).any(-1).sum()) if a.dim() > 1
                   else int((a != b).sum()) for a, b in zip(got, full)]
         res["level2_rows_differing"] = differ
@@ -2127,8 +2123,7 @@ def level2_timing(scene, label, res, levels):
             raise AssertionError(f"{label}: packed level 2 differs from "
                                  f"the full-width level on {differ} rows")
         res["level2_packed_ms"] = cuda_ms(lambda: packed(
-            scene, lv["o"], lv["d"], lv["w"], thread_perm=True,
-            width=width), 5)
+            scene, lv["o"], lv["d"], lv["w"], width=width), 5)
         res["level2_full_ms"] = cuda_ms(lambda: R.shade_level(
             scene, lv["o"], lv["d"], lv["w"]), 5)
     res["level2_width"] = width
@@ -2918,20 +2913,26 @@ def toy_bodies(n, pool, side):
                  for k in range(n)]
 
 
+def set_flag(flags):
+    """The index of the set flag of a level's flags, read on the host (the
+    body an IF node runs), or None where none is set."""
+    on = flags.cpu().tolist()
+    return on.index(1) if 1 in on else None
+
+
 def conditionals_check(gc):
     """10a: level_control_kernel on a toy level, a tile graph of one
     16,384-ray packing level (a mesh of 25,280 triangles: the four widths
     R/16 to R) whose four IF bodies each write their mark, for 13 live
     counts (0, the widths' edges, the whole level): the kernel's flags,
     its log entry and the body that ran against its plain version
-    (graph_cuda.level_control_plain) and against the host's choice
-    (render.level_predicates read on the host, render.taken_branch), all
-    exactly. Its time per launch of that graph (CUDA events, 200
-    launches), the plain version's (the plain decision on the card, its
-    flags read on the host and the chosen body's graph replayed; host
-    clock over 200 decisions) and the bound (8 bytes read, 4 flags and
-    the log entry written). Returns the kernels line's numbers
-    (max_abs_err: launches that disagree)."""
+    (graph_cuda.level_control_plain, its set flag read on the host) and
+    against render.level_width, all exactly. Its time per launch of that
+    graph (CUDA events, 200 launches), the plain version's (the plain
+    decision on the card, its flags read on the host and the chosen
+    body's graph replayed; host clock over 200 decisions) and the bound
+    (8 bytes read, 4 flags and the log entry written). Returns the
+    kernels line's numbers (max_abs_err: launches that disagree)."""
     import torch
 
     from raytracer_tpu_torch.core import render as R
@@ -2956,19 +2957,21 @@ def conditionals_check(gc):
         out.zero_()
         tg.launch()
         want, entry = gc.level_control_plain(live.cpu(), rows, codes)
-        k = R.taken_branch(R.level_predicates(st, rows, live.cpu()))
+        k = set_flag(want)
         got = [j for j, x in enumerate(out.cpu().tolist()) if x]
         wrong += not (torch.equal(flags.cpu(), want)
                       and int(log_[0]) == int(entry)
                       and got == ([] if k is None else [k])
-                      and R.taken_branch(want) == k)
+                      and [branches[j] for j in got]
+                      == ([R.level_width(st, rows, n_live)] if n_live
+                          else []))
         taken.append(None if k is None else branches[k])
     live.fill_(rows // 3)
     ms = cuda_ms(tg.launch, 200)
 
     def plain():
         f, _ = gc.level_control_plain(live, rows, codes)
-        k = R.taken_branch(f.cpu())
+        k = set_flag(f)
         if k is not None:
             bodies[k].replay()
 
@@ -3006,8 +3009,8 @@ def backward_conditionals_check(gc):
     bodies, each the captured vjp of a gather (index_put_'s accumulate,
     as in a level's backward), from those kept flags. For 8 live counts
     (0, the widths' edges, the whole level) exactly the flagged body must
-    write its gradient, equal to the host's (render.taken_branch of the
-    flags, then the gradient in torch). Then the backward graph's time
+    write its gradient, equal to the host's (the set flag read on the
+    host, then the gradient in torch). Then the backward graph's time
     per launch (CUDA events, 200 launches, ``whole_ms``) less its body's
     own (the flagged body's graph replayed alone, ``body_ms``),
     the plain version's (the flags read on the host, the chosen body's
@@ -3051,7 +3054,7 @@ def backward_conditionals_check(gc):
         out.zero_()
         fwd.launch()
         bwd.launch()
-        k = R.taken_branch(flags.cpu())
+        k = set_flag(flags)
         with torch.enable_grad():
             (want,) = torch.autograd.grad((x[idx] * float(k + 1)).sum(), x)
         got = out.cpu()
@@ -3063,12 +3066,12 @@ def backward_conditionals_check(gc):
         taken.append(str(branches[k]))
     live.fill_(rows // 3)
     fwd.launch()
-    k = R.taken_branch(flags.cpu())
+    k = set_flag(flags)
     whole_ms = cuda_ms(bwd.launch, 200)
     body_ms = cuda_ms(bodies[k].replay, 200)
 
     def plain():
-        j = R.taken_branch(flags.cpu())
+        j = set_flag(flags)
         if j is not None:
             bodies[j].replay()
 

@@ -42,10 +42,11 @@ Where DIR holds ``tile_graph.cu`` (the level control before
 ``set_conditionals_kernel``, for each level):
 
 * the nodes of the predicates part that the earlier tile and train
-  programs captured for a level (``render.level_predicates`` committed
-  into the level's flags), all and kernels, on a level that packs and
-  one that does not, at a dragons tile's 16,384 rays and a train
-  microbatch's 32,768 (with the dead level);
+  programs captured for a level (the level's flags computed in PyTorch
+  ops, here by ``graph_cuda.level_control_plain``, which also computes
+  the log entry, and committed into the level's flags), all and kernels,
+  on a level that packs and one that does not, at a dragons tile's 16,384
+  rays and a train microbatch's 32,768 (with the dead level);
 * a toy level's whole graph launch, 200 launches between CUDA events, in
   turns old, new, new, old: a 16,384-ray packing level (four widths),
   old the predicates part, ``set_conditionals_kernel`` and four IF nodes
@@ -251,8 +252,9 @@ def control_ab(old_dir, res):
         return kept[-1]
 
     def predicates(st, rows, flags, dead):
+        codes = GC.branch_codes(R.level_branches(st, rows, dead=dead))
         return captured(lambda: flags.copy_(
-            R.level_predicates(st, rows, live, dead=dead)))
+            GC.level_control_plain(live, rows, codes)[0]))
 
     out = res["control"] = {"predicates_nodes": {}}
     for kind, st in statics.items():

@@ -36,23 +36,25 @@ so seeded frames agree with the JAX package (and across devices) in
 distribution, not pixel for pixel.
 
 Live-ray compaction. Deep levels of mesh and area-light scenes are mostly
-parked rays, so ``color_at`` sorts a level's live rays to the front and
-shades only the narrowest of R/16, R/4, R/2 or R rows that holds them
-(:func:`_packed_shade_level`, the JAX package's rule and widths). The
-levels of a blend scene, which double by concatenation, are mostly parked
-too; they pack wherever the level keeps nothing for a backward
-(:func:`packs`), a rule of the port's own. In :func:`color_at` the width
-is a host decision, read in the same sync as the whole-level skip.
+parked rays, so ``color_at`` shades only a level's live rays, at the
+narrowest of R/16, R/4, R/2 or R rows that holds them (the JAX package's
+rule and widths): they are found by a prefix sum, gathered once, shaded
+and copied back into their rows (:func:`_packed_shade_level`); a level at
+width R runs whole. The levels of a blend scene, which double by
+concatenation, are mostly parked too; they pack wherever the level keeps
+nothing for a backward (:func:`packs`), a rule of the port's own. In
+:func:`color_at` the width is a host decision, read in the same sync as
+the whole-level skip.
 
 The compiled frame. ``render`` runs each tile through
 ``core/tile_program.TileProgram``, the counterpart of the JAX package's
 ``_tile_color_jit``/``_render_frame_jit``: the level steps below
-(:func:`shade_step`, :func:`accumulate`, :func:`spawn_step`,
-:func:`finish_step`) in one CUDA graph per tile, in which the level skip
-and the packed width are taken on the card by conditional nodes on
-:func:`level_predicates`, the counterpart of the JAX package's
-``lax.cond`` chain. ``render(..., graphs=False)`` and :func:`color_at`
-run the same steps eagerly.
+(:func:`level_step`, :func:`dead_step`) in one CUDA graph per tile, in
+which the level skip and the packed width are taken on the card by
+``level_control_kernel`` and conditional nodes (``ops/graph_cuda``), the
+counterpart of the JAX package's ``lax.cond`` chain.
+``render(..., graphs=False)`` and :func:`color_at` run the same steps
+eagerly.
 
 Not ported: the JAX package's ``_max_mesh_tile`` clamp, which sizes tiles
 to the TPU's 1 MB of scalar memory; K1's pre-pass tables live in global
@@ -376,14 +378,6 @@ def _packed_width(r: int, n_live: int) -> int:
     return r
 
 
-def rows_of(x, idx):
-    """``x[idx]`` for distinct row indices ``idx`` (a permutation, or a
-    part of one): ``index_select``, whose backward adds each gradient row
-    once into zeros (``index_add_``), where ``x[idx]``'s would sort the
-    indices and walk them (``index_put_`` with accumulate)."""
-    return x.index_select(0, idx)
-
-
 def _live_first(live, width: int):
     """The first ``width`` rows of a level in its stable live-first order,
     ``argsort(~live, stable=True)[:width]``, by a prefix sum in place of
@@ -398,60 +392,38 @@ def _live_first(live, width: int):
     return sel[:width]
 
 
-# The rows a packed blend level does not shade: zero colour and weights,
-# parked origins and directions, in the order of its seven outputs
-# (colour, then the reflect and the refract spawns' origin, direction and
-# weight).
+# The rows a packed level does not shade: zero colour and weights, parked
+# origins and directions, in the order of its seven outputs (colour, then
+# the reflect and the refract spawns' origin, direction and weight).
 _UNSHADED = ((0.0,) * 3 + PARK_ORIGIN + PARK_DIR) * 2 + (0.0,) * 3
 
 
-def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *,
-                        thread_perm=False, width):
-    """:func:`shade_level` with the live rays (any weight > 0) moved to the
-    front in a stable order and shaded at ``width`` rows, the narrowest of
-    R/16, R/4, R/2 and R that holds them (:func:`_packed_width` of the live
-    count, which the caller has read). The rows past the live rays are
-    parked padding. Each ray's result does not depend on its batch or its
-    neighbours (K1's gates are conservative), so this is exact; the
-    sorted rays shade the first ``width`` rows of the level's area-light
-    ``jitter`` (drawn at ``(R, S, 4)``), so a seeded frame agrees with the
-    full-width one in distribution.
+def _packed_shade_level(scene: T.Scene, o, d, w, jitter=None, *, width):
+    """:func:`shade_level` of a level's live rays (any weight > 0) at
+    ``width`` rows, the narrowest of R/16, R/4, R/2 and R that holds them
+    (:func:`_packed_width` of the live count, which the caller has read):
+    the level's first ``width`` rows in its stable live-first order
+    (:func:`_live_first`: the live rays in the order of their rows, then
+    parked padding), gathered once and shaded with the first ``width``
+    rows of the level's area-light ``jitter`` (drawn at ``(R, S, 4)``), so
+    that the k-th live ray takes draw row k. Each ray's result does not
+    depend on its batch or its neighbours (K1's gates are conservative),
+    so this is exact, and a seeded frame agrees with the whole-width one
+    in distribution.
 
     Returns shade_level's outputs at R rows, in the rays' own order: the
-    shaded rows copied into full-width outputs that start zero (colour,
-    weights) and parked (origins, directions), the order found by a prefix
-    sum (:func:`_live_first`). With ``thread_perm``, in the sorted order
-    instead (an argsort, the rows past ``width`` appended parked), plus
-    the permutation ``order`` (slot -> row), which the caller composes
-    across levels and undoes once (``color_at``)."""
+    shaded rows copied, in one copy, into full-width outputs that start
+    zero (colour, weights) and parked (origins, directions)."""
     r = o.shape[0]
     if jitter is not None:
         jitter = tuple(j[:width] for j in jitter)
-    if not thread_perm:
-        # one gather of the three inputs, one copy of the seven outputs
-        # into their full-width rows: each a single allocation
-        sel = _live_first((w > 0.0).any(-1), width)
-        colored, refl, refr = shade_level(
-            scene, *torch.stack([o, d, w]).index_select(1, sel), jitter)
-        out = T.small_const(_UNSHADED, o.device, o.dtype).view(7, 1, 3)
-        out = out.expand(7, r, 3).contiguous().index_copy_(
-            1, sel, torch.stack([colored, *refl, *refr]))
-        return out[0], tuple(out[1:4]), tuple(out[4:7])
-    live = (w > 0.0).any(-1)
-    order = torch.argsort((~live).to(torch.uint8), stable=True)
-    sel = order[:width]
-    colored, refl, refr = shade_level(scene, rows_of(o, sel),
-                                      rows_of(d, sel), rows_of(w, sel),
-                                      jitter)
-    out = [colored, *refl, *refr]
-    if width < r:
-        zero = torch.zeros(3, dtype=colored.dtype, device=o.device)
-        po = T.small_const(PARK_ORIGIN, o.device, o.dtype)
-        pd = T.small_const(PARK_DIR, d.device, d.dtype)
-        fills = (zero, po, pd, zero, po, pd, zero)
-        out = [torch.cat([x, f.expand(r - width, 3)]) for x, f in
-               zip(out, fills)]
-    return out[0], tuple(out[1:4]), tuple(out[4:7]), order
+    sel = _live_first((w > 0.0).any(-1), width)
+    colored, refl, refr = shade_level(
+        scene, *torch.stack([o, d, w]).index_select(1, sel), jitter)
+    out = T.small_const(_UNSHADED, o.device, o.dtype).view(7, 1, 3)
+    out = out.expand(7, r, 3).contiguous().index_copy_(
+        1, sel, torch.stack([colored, *refl, *refr]))
+    return out[0], tuple(out[1:4]), tuple(out[4:7])
 
 
 def packs(static: T.SceneStatic, r: int, *, keeps: bool = True) -> bool:
@@ -473,7 +445,7 @@ def packs(static: T.SceneStatic, r: int, *, keeps: bool = True) -> bool:
       body a level.
 
     Other scenes of small primitives keep their levels mostly live, and
-    there a sort costs more than it saves."""
+    there the packing costs more than it saves."""
     big = static.counts[5] - static.n_csg_tris > 20000 or static.area_steps
     return bool((big or (static.has_blend and not keeps))
                 and r >= 4096 and r % 16 == 0)
@@ -488,7 +460,7 @@ def level_width(static: T.SceneStatic, rows: int, n_live: int, *,
     """The width a level of ``rows`` rays, ``n_live`` of them live, is
     shaded at: :func:`_packed_width` where :func:`packs` holds (``keeps``:
     whether the level keeps its tensors for a backward), else None (the
-    whole level, unsorted)."""
+    whole level)."""
     return (_packed_width(rows, n_live) if packs(static, rows, keeps=keeps)
             else None)
 
@@ -513,42 +485,6 @@ def level_branches(static: T.SceneStatic, rows: int, *,
     return out + (DEAD,) if dead else out
 
 
-def level_predicates(static: T.SceneStatic, rows: int, live, *,
-                     dead: bool = False, keeps: bool = True):
-    """Which branch of :func:`level_branches` a level of ``rows`` rays
-    takes, from its live count ``live`` (an int64 tensor, on the device or
-    not): int32 flags [..., n_branches], at most one set, none when
-    ``live`` is 0. The flag of width W is ``live > 0 and
-    _packed_width(rows, live) == W``: :func:`level_width` in tensor ops,
-    so that a CUDA graph computes it on the card (the JAX package's
-    ``lax.cond`` chain on ``jnp.any(w > 0)`` and the live count). With
-    ``dead``, one more flag, ``live == 0`` (the branch :data:`DEAD`), so
-    that exactly one is set. ``keeps``: as in :func:`level_branches`. The
-    programs' conditional nodes read these flags; on the CPU they read
-    them on the host (:func:`taken_branch`)."""
-    branches = level_branches(static, rows, keeps=keeps)
-    alive = live > 0
-    if branches == (None,):
-        flags = [alive]
-    else:
-        q, h = rows // 4, rows // 2
-        width = torch.where(live <= rows // 16, rows // 16, torch.where(
-            live <= q, q, torch.where(live <= h, h, rows)))
-        flags = [alive & (width == w) for w in branches]
-    if dead:
-        flags.append(~alive)
-    return torch.stack(flags, -1).to(torch.int32)
-
-
-def taken_branch(flags) -> int | None:
-    """The index of the set flag of :func:`level_predicates` ([n], read on
-    the host), or None when the level is skipped."""
-    hits = [k for k, f in enumerate(flags.tolist()) if f]
-    if len(hits) > 1:
-        raise AssertionError(f"level predicates not exclusive: {flags}")
-    return hits[0] if hits else None
-
-
 def level_rows(static: T.SceneStatic, rows: int, limit: int) -> list:
     """Rays of each level that may run, from level 0 (``rows``) to the
     last: ``limit`` in a scene that spawns, else 0."""
@@ -559,28 +495,14 @@ def level_rows(static: T.SceneStatic, rows: int, limit: int) -> list:
     return out
 
 
-def shade_step(scene: T.Scene, o, d, w, jitter, *, width, thread_perm):
+def shade_step(scene: T.Scene, o, d, w, jitter, *, width):
     """One level's trace + shade at ``width`` (:func:`level_width`):
-    (colored, reflect spawn, refract spawn, order), where ``order`` is the
-    live-first permutation a packed ``thread_perm`` level leaves its
-    outputs in, else None. A level that keeps its rays' order (not
-    ``thread_perm``: a blend scene's) runs whole and unsorted at width R,
-    as at width None: the same rows in the same order."""
-    if width is None or (width == o.shape[0] and not thread_perm):
-        return (*shade_level(scene, o, d, w, jitter=jitter), None)
-    out = _packed_shade_level(scene, o, d, w, jitter=jitter,
-                              thread_perm=thread_perm, width=width)
-    return out if thread_perm else (*out, None)
-
-
-def accumulate(img, perm, colored, order):
-    """The image after a level: its colours added, in the level's slot
-    order; ``perm`` (slot -> row, None for the identity) composed with
-    the level's ``order``. Returns (img, perm)."""
-    if order is None:
-        return img + colored.reshape(-1, img.shape[0], 3).sum(0), perm
-    return (rows_of(img, order) + colored,
-            order if perm is None else perm[order])
+    (colored, reflect spawn, refract spawn), in the rays' order. At width
+    None or R the level runs whole; narrower, its live rays alone
+    (:func:`_packed_shade_level`)."""
+    if width is None or width == o.shape[0]:
+        return shade_level(scene, o, d, w, jitter=jitter)
+    return _packed_shade_level(scene, o, d, w, jitter=jitter, width=width)
 
 
 def spawns(static: T.SceneStatic) -> bool:
@@ -626,21 +548,17 @@ def live_count(w):
     return (w > 0.0).any(-1).sum()
 
 
-def level_step(scene: T.Scene, level: int, limit: int, o, d, w, img, perm,
-               jitter, *, width, thread_perm, tracks_perm):
+def level_step(scene: T.Scene, level: int, limit: int, o, d, w, img,
+               jitter, *, width):
     """One level of a batch as the compiled programs run it: the shade
-    (:func:`shade_step`), the image update (:func:`accumulate`) and,
-    below ``limit`` in a scene that spawns, the next level's rays
-    (:func:`spawn_step`) and their live count. Returns the outputs by
-    name: ``img``, ``perm`` (with ``tracks_perm``), ``o``, ``d``, ``w``
-    and ``live``."""
+    (:func:`shade_step`), its colours added to the image (a blend level's
+    2^L blocks of R rows each) and, below ``limit`` in a scene that
+    spawns, the next level's rays (:func:`spawn_step`) and their live
+    count. Returns the outputs by name: ``img``, ``o``, ``d``, ``w`` and
+    ``live``."""
     st = scene.static
-    colored, refl, refr, order = shade_step(
-        scene, o, d, w, jitter, width=width, thread_perm=thread_perm)
-    img, perm = accumulate(img, perm, colored, order)
-    out = {"img": img}
-    if tracks_perm:
-        out["perm"] = perm
+    colored, refl, refr = shade_step(scene, o, d, w, jitter, width=width)
+    out = {"img": img + colored.reshape(-1, img.shape[0], 3).sum(0)}
     if level < limit and spawns(st):
         o, d, w = spawn_step(st, refl, refr)
         out.update(o=o, d=d, w=w, live=live_count(w))
@@ -648,16 +566,14 @@ def level_step(scene: T.Scene, level: int, limit: int, o, d, w, img, perm,
 
 
 def dead_step(static: T.SceneStatic, level: int, limit: int, rows: int,
-              img, perm, *, tracks_perm):
+              img):
     """:func:`level_step`'s outputs for a level of ``rows`` rays that are
     all parked (the JAX package's ``_dead`` branch,
-    ``render.py:422-428``): the image and ``perm`` passed through as they
-    are (the caller copies them: a copy, not an added zero, keeps a
-    -0.0), and below ``limit`` in a scene that spawns zero-weight spawns,
-    parked, and a live count of 0."""
+    ``render.py:422-428``): the image passed through as it is (the caller
+    copies it: a copy, not an added zero, keeps a -0.0), and below
+    ``limit`` in a scene that spawns zero-weight spawns, parked, and a
+    live count of 0."""
     out = {"img": img}
-    if tracks_perm:
-        out["perm"] = perm
     if level < limit and spawns(static):
         n, dev = spawn_rows(static, rows), img.device
         out.update(o=T.small_const(PARK_ORIGIN, dev, img.dtype).expand(n, 3),
@@ -665,12 +581,6 @@ def dead_step(static: T.SceneStatic, level: int, limit: int, rows: int,
                    w=torch.zeros((n, 3), dtype=img.dtype, device=dev),
                    live=torch.zeros((), dtype=torch.int64, device=dev))
     return out
-
-
-def finish_step(img, perm):
-    """The tile's colours in its rays' order: the composed permutation of
-    the packed levels undone once."""
-    return img if perm is None else rows_of(img, torch.argsort(perm))
 
 
 def quantize_u8(c):
@@ -700,11 +610,7 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     nothing for a backward (``render(..., graphs=False)``); with
     gradients on they run whole, as in a train program. Every level draws
     its jitter at its whole width, run or not (see the module docstring).
-    Without a blend material the level width stays R, so the packed
-    levels keep their outputs in sorted order, the image follows, and the
-    composed permutation is undone once at the end
-    (``thread_perm``); blend scenes, whose levels double by concatenation,
-    un-permute each level.
+    A packed level's outputs come back in its rays' order.
 
     ``remat=True`` runs every level under ``torch.utils.checkpoint``
     (:func:`_remat`): the backward pass recomputes each level's trace, K1
@@ -725,10 +631,6 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
 
     o, d = origins, directions
     w = torch.ones((r, 3), device=origins.device)
-    # composed live-first permutation (slot -> original row) of the packed
-    # levels that keep their outputs sorted; img follows the slot order
-    perm = None
-    thread_perm = not st.has_blend
     rows = level_rows(st, r, limit)
     keeps = torch.is_grad_enabled()
     drawn = 0
@@ -741,19 +643,18 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
             width = level_width(st, rows[level], n_live, keeps=keeps)
         jitter = draw_jitter(scene, rows[level], generator)
         drawn += 1
-        step = functools.partial(shade_step, width=width,
-                                 thread_perm=thread_perm)
+        step = functools.partial(shade_step, width=width)
         if remat:
-            colored, refl, refr, order = _remat(step, scene, o, d, w, jitter)
+            colored, refl, refr = _remat(step, scene, o, d, w, jitter)
         else:
-            colored, refl, refr, order = step(scene, o, d, w, jitter)
-        img, perm = accumulate(img, perm, colored, order)
+            colored, refl, refr = step(scene, o, d, w, jitter)
+        img = img + colored.reshape(-1, r, 3).sum(0)
         if level == len(rows) - 1:
             break
         o, d, w = spawn_step(st, refl, refr)
     for n in rows[drawn:]:      # the levels not run draw theirs too
         draw_jitter(scene, n, generator)
-    return finish_step(img, perm)
+    return img
 
 
 def tile_rays(inv, consts, idx, hsize):

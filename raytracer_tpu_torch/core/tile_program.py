@@ -17,18 +17,18 @@ A :class:`TileProgram` runs a tile as one graph:
    kernel, ``level_control_kernel`` (``ops/graph_cuda.Control``), that
    reads the live count and chooses the level's branch among
    ``render.level_branches`` (the widths R/16, R/4, R/2 and R where the
-   level packs, else the whole level), as ``render.level_predicates``
-   does: it writes the level's flags and its entry of the level log and
-   sets the conditional handles; then one IF node per branch, at most
-   one of them run, whose body is ``render.level_step`` at that width on
-   the level's buffers. A level whose live count is 0 runs no body and
-   leaves the count 0, so every later level is skipped too. A tile keeps
-   nothing for a backward, so a blend scene's levels pack here too
-   (``render.packs`` with ``keeps=False``), where a train program runs
-   them whole: their narrow bodies shade the live rays alone, and the
-   widest is the whole level, unsorted;
-3. the finish: the composed permutation of the packed levels undone,
-   quantized if asked, into the tile buffer.
+   level packs, else the whole level), as
+   ``graph_cuda.level_control_plain`` does: it writes the level's flags
+   and its entry of the level log and sets the conditional handles; then
+   one IF node per branch, at most one of them run, whose body is
+   ``render.level_step`` at that width on the level's buffers: a narrow
+   body shades the live rays alone and copies them back into their rows,
+   the widest is the whole level. A level whose live count is 0 runs no
+   body and leaves the count 0, so every later level is skipped too. A
+   tile keeps nothing for a backward, so a blend scene's levels pack here
+   too (``render.packs`` with ``keeps=False``), where a train program
+   runs them whole;
+3. the finish: the image, quantized if asked, into the tile buffer.
 
 ``frame`` enqueues per tile the copy of its pixel ids, the draws of its
 jitter, one launch of the tile graph and the copies of the tile and of
@@ -51,7 +51,7 @@ capture, so all the parts share one memory pool.
 
 Every part reads and writes static buffers only: the camera (``inv``,
 ``consts``), the frame's width (``hsize``), the tile's pixel ids, o/d/w
-at each level's width, the image accumulator, ``perm``, the live count,
+at each level's width, the image accumulator, the live count,
 each level's flags and jitter, the level log and the tile. The random
 area-light jitter is drawn before each tile, from the caller's generator,
 into every level's buffer at the level's whole width, run or not
@@ -73,13 +73,11 @@ logged width, or its rows where it ran whole), which it gives the open
 root span as ``attrs["rows_shaded"]``.
 
 On a CPU scene the program runs the same parts on the same buffers
-without capture: it computes the same flags (``render.level_predicates``)
-and runs the body whose flag is set, reading the flags on the host
-(``render.taken_branch``), and writes the level log from the branch
-taken. A card
-or a PyTorch without conditional nodes raises
-(``graph_cuda.check_support``); nothing falls back to a host-decided
-loop, to the eager loop or to the CPU.
+without capture: the kernel's plain version writes the same flags and
+level log entries (``graph_cuda.level_control_cpu``), and the body whose
+flag is set runs, the flags read on the host. A card or a PyTorch
+without conditional nodes raises (``graph_cuda.check_support``); nothing
+falls back to a host-decided loop, to the eager loop or to the CPU.
 """
 
 from __future__ import annotations
@@ -87,6 +85,7 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch.core import render as R
+from raytracer_tpu_torch.ops import graph_cuda as GC
 from raytracer_tpu_torch.ops import mesh_cuda as MC
 from raytracer_tpu_torch.utils import profiling as P
 
@@ -139,13 +138,10 @@ class TileProgram:
         self.static = static
         self.device = torch.device(device)
         self.tile, self.limit = tile, limit
-        self.thread_perm = not static.has_blend
-        # packed levels of a non-blend scene keep their outputs in sorted
-        # order: perm composes them (the identity after level 0)
-        self.tracks_perm = self.thread_perm and R.packs(static, tile)
         self.rows = R.level_rows(static, tile, limit)
         self.branches = [R.level_branches(static, r, keeps=False)
                          for r in self.rows]
+        self.codes = [GC.branch_codes(b) for b in self.branches]
         self.capture = self.device.type == "cuda"
         self.bufs = {}
         self.graphs = {}          # part key -> (CUDAGraph, launch counts)
@@ -159,8 +155,7 @@ class TileProgram:
         self.live = self._buf("live", (), torch.int64)
         self.log = self._buf("log", (len(self.rows),), torch.int32)
         if self.capture:
-            from raytracer_tpu_torch.ops import graph_cuda
-            self.versions = graph_cuda.check_support()
+            self.versions = GC.check_support()
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
         self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
@@ -210,36 +205,24 @@ class TileProgram:
         self.log.fill_(-1)
         self.log[0].fill_(0)
         o, d = R.tile_rays(self.inv, self.consts, self.idx, self.hsize)
-        perm = (torch.arange(r, device=self.device) if self.tracks_perm
-                else None)
         return R.level_step(
             scene, 0, self.limit, o, d,
             torch.ones((r, 3), device=self.device),
-            torch.zeros((r, 3), device=self.device), perm, self._jitter(0),
-            width=None, thread_perm=self.thread_perm,
-            tracks_perm=self.tracks_perm)
-
-    def _predicates(self, level):
-        return {("flags", level): R.level_predicates(
-            self.static, self.rows[level], self.live, keeps=False)}
+            torch.zeros((r, 3), device=self.device), self._jitter(0),
+            width=None)
 
     def _body(self, scene, level, width):
         """Branch ``width`` of ``level``: its results by buffer name."""
         rows = self.rows[level]
         o, d, w = (self._buf(k, (rows, 3), F32) for k in "odw")
-        perm = (self._buf("perm", (self.tile,), torch.int64)
-                if self.tracks_perm else None)
         return R.level_step(
             scene, level, self.limit, o, d, w,
-            self._buf("img", (self.tile, 3), F32), perm,
-            self._jitter(level), width=width, thread_perm=self.thread_perm,
-            tracks_perm=self.tracks_perm)
+            self._buf("img", (self.tile, 3), F32), self._jitter(level),
+            width=width)
 
     def _finish(self, quantize):
-        perm = (self._buf("perm", (self.tile,), torch.int64)
-                if self.tracks_perm else None)
-        c = R.finish_step(self._buf("img", (self.tile, 3), F32), perm)
-        return {"tile": R.quantize_u8(c) if quantize else c}
+        img = self._buf("img", (self.tile, 3), F32)
+        return {"tile": R.quantize_u8(img) if quantize else img}
 
     def _parts(self, scene, quantize):
         """The tile's parts in order: (key, function, whether its eager
@@ -256,17 +239,16 @@ class TileProgram:
 
     # -- running -----------------------------------------------------------
     def _run_cpu(self, scene, quantize):
-        """The tile on the CPU: the parts in order, a level's branch
-        chosen by its flags read on the host, its level log entry written
-        from the branch taken."""
+        """The tile on the CPU: the parts in order, each level decided by
+        the control kernel's plain version, its flags read on the host."""
         self._commit(self._level0(scene))
         for level in range(1, len(self.rows)):
-            self._commit(self._predicates(level))
-            k = R.taken_branch(self._flags(level))
-            if k is not None:      # else level 0's -1 (skipped) stands
-                width = self.branches[level][k]
-                self.log[level].fill_(width or 0)
-                self._commit(self._body(scene, level, width))
+            k = GC.level_control_cpu(self.live, self.rows[level],
+                                     self.codes[level], self._flags(level),
+                                     self.log[level])
+            if k is not None:
+                self._commit(self._body(scene, level,
+                                        self.branches[level][k]))
         self._commit(self._finish(quantize))
 
     def _tile_graph(self, scene, quantize):
@@ -275,7 +257,6 @@ class TileProgram:
         then chained, each level's branches after its control kernel."""
         if quantize in self.tiles:
             return self.tiles[quantize]
-        from raytracer_tpu_torch.ops import graph_cuda
         with P.timed("frame.capture") as sp:
             parts = [p for p in self._parts(scene, quantize)
                      if p[0] not in self.graphs]
@@ -294,13 +275,13 @@ class TileProgram:
             with P.span("capture.chain"):
                 chain = [self.graphs[("level", 0)][0]]
                 for level in range(1, len(self.rows)):
-                    chain.append(graph_cuda.Control(
+                    chain.append(GC.Control(
                         self.live, self.rows[level], self.branches[level],
                         self._flags(level), self.log[level],
                         [self.graphs[(level, w)][0]
                          for w in self.branches[level]]))
                 chain.append(self.graphs[("finish", quantize)][0])
-                tg = self.tiles[quantize] = graph_cuda.TileGraph(chain)
+                tg = self.tiles[quantize] = GC.TileGraph(chain)
         self.stats["capture_s"] += sp.seconds
         return tg
 

@@ -17,17 +17,17 @@ node, as in ``core/tile_program.py`` for the frame. A
 1. the forward graph: level 0; then for each level L from 1 to the limit,
    where the scene spawns, one kernel, ``level_control_kernel``
    (``ops/graph_cuda.Control``), that chooses the level's branch on the
-   card from the live count, as ``render.level_predicates(...,
-   dead=True)`` does (exactly one set), writes the level's flags and its
-   entry of the level log and sets the handles of one IF node per branch
-   of ``render.level_branches(..., dead=True)``: the widths R/16, R/4,
-   R/2 and R where the level packs, else the whole level, and the dead
-   level (``render.dead_step``), which passes the image and ``perm``
-   through and writes zero-weight spawns and a live count of 0. A body
-   is ``render.level_step`` at its width on level L's input buffers, its
-   outputs copied into level L + 1's. Then the loss (the MSE of
-   ``render_loss``) of the last level's image and its gradient with
-   respect to that image;
+   card from the live count, as ``graph_cuda.level_control_plain``
+   does with the dead level among the branches (exactly one set), writes
+   the level's flags and its entry of the level log and sets the handles
+   of one IF node per branch of ``render.level_branches(...,
+   dead=True)``: the widths R/16, R/4, R/2 and R where the level packs,
+   else the whole level, and the dead level (``render.dead_step``), which
+   passes the image through and writes zero-weight spawns and a live
+   count of 0. A body is ``render.level_step`` at its width on level L's
+   input buffers, its outputs copied into level L + 1's. Then the loss
+   (the MSE of ``render_loss``) of the last level's image and its
+   gradient with respect to that image;
 2. the backward graph: the parameters' gradient sums set to -0.0; then
    one kernel, ``backward_control_kernel`` (``ops/graph_cuda.Backward``),
    that sets every level's IF handles from the flags the forward wrote;
@@ -105,12 +105,13 @@ The update is not in a graph: ``train_step``'s SGD and a ``torch.optim``
 step run eagerly after the graphed gradient (a few launches per table).
 
 On a CPU scene the program runs the same parts on the same buffers
-without capture, choosing each level's body by its flags
-(``render.level_predicates``) read on the host (``render.taken_branch``)
-and writing the level log from the branch taken. A card or a PyTorch
-without conditional nodes raises (``graph_cuda.check_support``), and so
-does a capture or launch error; nothing falls back to a host-decided
-loop, to the eager step or to the CPU.
+without capture: the control kernel's plain version writes the same flags
+and level log entries (``graph_cuda.level_control_cpu``), and each level's
+body, forward and backward, is the one whose flag is set, read on the
+host. A card or a PyTorch without conditional nodes raises
+(``graph_cuda.check_support``), and so does a capture or launch error;
+nothing falls back to a host-decided loop, to the eager step or to the
+CPU.
 """
 
 from __future__ import annotations
@@ -121,6 +122,7 @@ import torch
 
 from raytracer_tpu_torch.core import render as R
 from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.ops import graph_cuda as GC
 from raytracer_tpu_torch.ops import mesh_cuda as MC
 from raytracer_tpu_torch.utils import profiling as P
 
@@ -213,8 +215,8 @@ class TrainProgram:
         self.end = len(self.level_rows)
         self.branches = {lv: R.level_branches(static, n, dead=True)
                          for lv, n in enumerate(self.level_rows) if lv}
-        self.thread_perm = not static.has_blend
-        self.tracks_perm = self.thread_perm and R.packs(static, rows)
+        self.codes = {lv: GC.branch_codes(b)
+                      for lv, b in self.branches.items()}
         self.capture = device.type == "cuda"
         self.params = {k: torch.zeros(shape, dtype=dtype, device=device,
                                       requires_grad=True)
@@ -241,8 +243,6 @@ class TrainProgram:
                                             requires_grad=ray_grad[1]))
             self._put(("w", 0), torch.ones((rows, 3), device=device))
             self._put(("img", 0), torch.zeros((rows, 3), device=device))
-            if self.tracks_perm:
-                self._put(("perm", 0), torch.arange(rows, device=device))
             for k, p in self.params.items():
                 self._put(("acc", k), torch.zeros_like(p))
             self._put(("log",), torch.zeros(len(self.level_rows),
@@ -252,8 +252,7 @@ class TrainProgram:
                     len(branches), dtype=torch.int32, device=device))
         self.log = self.bufs[("log",)]
         if self.capture:
-            from raytracer_tpu_torch.ops import graph_cuda
-            self.versions = graph_cuda.check_support()
+            self.versions = GC.check_support()
             # the pool the parts' temporaries share; a forward body whose
             # tensors are kept gets one of its own (``pools``)
             self.pool = torch.cuda.graph_pool_handle()
@@ -349,9 +348,7 @@ class TrainProgram:
             return R.level_step(
                 self.scene, level, self.limit, b[("o", level)],
                 b[("d", level)], b[("w", level)], b[("img", level)],
-                b.get(("perm", level)), self._jitter(level),
-                width=width, thread_perm=self.thread_perm,
-                tracks_perm=self.tracks_perm)
+                self._jitter(level), width=width)
 
     def _named(self, level, outs):
         """Level ``level``'s outputs by the buffer names of level + 1."""
@@ -371,19 +368,12 @@ class TrainProgram:
     def _fwd_commit(self, level):
         return lambda outs: self._commit(self._named(level, outs))
 
-    def _predicates(self, level):
-        return {("flags", level): R.level_predicates(
-            self.static, self.level_rows[level], self.bufs[("live",)],
-            dead=True)}
-
     def _dead(self, level):
         """The dead body of ``level`` (``render.dead_step``), by buffer
         name."""
-        b = self.bufs
         return self._named(level, R.dead_step(
             self.static, level, self.limit, self.level_rows[level],
-            b[("img", level)], b.get(("perm", level)),
-            tracks_perm=self.tracks_perm))
+            self.bufs[("img", level)]))
 
     def _dead_commit(self, outs):
         """The dead body's outputs into the next level's buffers. A spawn
@@ -404,8 +394,7 @@ class TrainProgram:
         gradient with respect to that image."""
         img = self.bufs[("img", self.end)]
         with torch.enable_grad():
-            c = R.finish_step(img, self.bufs.get(("perm", self.end)))
-            loss = torch.mean((c - self.bufs[("target",)]) ** 2)
+            loss = torch.mean((img - self.bufs[("target",)]) ** 2)
             g_img = (torch.autograd.grad(loss, img)[0] if img.requires_grad
                      else torch.zeros_like(img))
         return {("loss",): loss.detach(), ("g_img", self.end): g_img}
@@ -562,43 +551,36 @@ class TrainProgram:
                               self._bwd_body(level, width), self._commit)
 
     def _chain(self, levels):
-        from raytracer_tpu_torch.ops import graph_cuda
-
         g = self.graphs
         fwd = [g[("fwd", 0, None)][0]]
         for level in levels:
-            fwd.append(graph_cuda.Control(
+            fwd.append(GC.Control(
                 self.bufs[("live",)], self.level_rows[level],
                 self.branches[level], self._flags(level), self.log[level],
                 [g[("fwd", level, w)][0] for w in self.branches[level]]))
         bwd = [g[("head",)][0]]
         if levels:
-            bwd.append(graph_cuda.Backward(
+            bwd.append(GC.Backward(
                 [(self._flags(level), [g[("bwd", level, w)][0]
                                        for w in self.branches[level]])
                  for level in reversed(levels)]))
         fwd.append(g[("loss",)][0])
         bwd.append(g[("bwd", 0, None)][0])
-        self.fwd_graph = graph_cuda.TileGraph(fwd)
-        self.bwd_graph = graph_cuda.TileGraph(bwd)
+        self.fwd_graph = GC.TileGraph(fwd)
+        self.bwd_graph = GC.TileGraph(bwd)
 
     # -- running -----------------------------------------------------------
-    def _taken(self, level):
-        """The branch ``level`` takes, its flags read on the host (the
-        CPU's choice of body)."""
-        return self.branches[level][R.taken_branch(self._flags(level))]
-
     def _forward_cpu(self):
-        """The forward on the CPU: the parts in order, a level's body
-        chosen by its flags read on the host, its level log entry written
-        from the branch taken (-1 for the dead level)."""
+        """The forward on the CPU: the parts in order, each level decided
+        by the control kernel's plain version, its flags read on the
+        host."""
         levels = range(1, self.end)
         for level in [0, *levels]:
             width = None
             if level:
-                self._commit(self._predicates(level))
-                width = self._taken(level)
-                self.log[level].fill_(-1 if width == R.DEAD else width or 0)
+                width = self.branches[level][GC.level_control_cpu(
+                    self.bufs[("live",)], self.level_rows[level],
+                    self.codes[level], self._flags(level), self.log[level])]
             self.graphs.setdefault(("fwd", level, width), None)
             if width == R.DEAD:
                 self._dead_commit(self._dead(level))
@@ -615,7 +597,8 @@ class TrainProgram:
         level's body chosen by the flags its forward wrote."""
         self._commit(self._head())
         for level in [*reversed(range(1, self.end)), 0]:
-            width = self._taken(level) if level else None
+            width = (self.branches[level][self._flags(level).tolist().index(1)]
+                     if level else None)
             self.graphs.setdefault(("bwd", level, width), None)
             self._commit(self._dead_bwd(level) if width == R.DEAD
                          else self._bwd(level, width, self._kept.get(level)))

@@ -26,7 +26,7 @@
 //
 // level_control_kernel: one thread computes the level's branch from its
 // live count (an int64 on the card, written by the part before), as
-// core/render.level_predicates does: the narrowest of R/16, R/4, R/2 and
+// ops/graph_cuda.level_control_plain does: the narrowest of R/16, R/4, R/2 and
 // R that holds the live rays where the level packs, the whole level where
 // it does not, none when no ray lives, or the dead level where the table
 // has one. It writes the int32 flags (at most one set; exactly one with

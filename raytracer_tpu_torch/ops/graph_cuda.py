@@ -27,9 +27,10 @@ is missing.
 The plain version of ``level_control_kernel`` is :func:`level_control_plain`
 (the decision from the branch table as the kernel encodes it,
 :func:`branch_codes`); the card's path never calls it. On the CPU the
-tile and train programs compute ``core/render.level_predicates`` and take
-the branch on the host (``render.taken_branch``), which is also the plain
-version of ``backward_control_kernel``.
+tile and train programs run it on the buffers the kernel writes
+(:func:`level_control_cpu`) and take the body whose flag is set, read on
+the host; a train program's backward reads the same flags, which is the
+plain version of ``backward_control_kernel``.
 """
 
 from __future__ import annotations
@@ -155,6 +156,19 @@ def level_control_plain(live, rows: int, codes):
         if code != CODE_DEAD:
             log = torch.where(on, code, log)
     return torch.stack(flags, -1).to(torch.int32), log.to(torch.int32)
+
+
+def level_control_cpu(live, rows: int, codes, flags, log):
+    """A level decided on the CPU as :class:`Control` decides it on the
+    card: :func:`level_control_plain`'s flags and log entry written into
+    ``flags`` and ``log``, the buffers the kernel writes. Returns the index
+    of the set flag, the body whose IF node would run, read on the host
+    (None: none is set)."""
+    on, entry = level_control_plain(live, rows, codes)
+    flags.copy_(on)
+    log.copy_(entry)
+    on = on.tolist()
+    return on.index(1) if 1 in on else None
 
 
 class Control(NamedTuple):

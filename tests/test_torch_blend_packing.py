@@ -132,8 +132,8 @@ def test_a_blend_level_at_its_whole_width_runs_unsorted(monkeypatch):
     with torch.no_grad():
         want = R.shade_level(sc, o, d, w)
         monkeypatch.setattr(R, "_packed_shade_level", no_sort)
-        got = R.shade_step(sc, o, d, w, None, width=4096, thread_perm=False)
-    assert got[3] is None
+        got = R.shade_step(sc, o, d, w, None, width=4096)
+    assert len(got) == 3
     flat = lambda out: [out[0], *out[1], *out[2]]  # noqa: E731
     for x, y in zip(flat(got), flat(want)):
         assert x.numpy().tobytes() == y.numpy().tobytes()

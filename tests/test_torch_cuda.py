@@ -657,7 +657,7 @@ def test_backward_level_runs_the_flagged_body():
         out.zero_()
         fwd.launch()
         bwd.launch()
-        k = R.taken_branch(flags.cpu())
+        k = flags.cpu().tolist().index(1)
         assert branches[k] == (R.DEAD if n_live == 0
                                else R.level_width(st, rows, n_live))
         got = out.cpu()
@@ -674,9 +674,10 @@ def test_backward_level_runs_the_flagged_body():
 def test_tile_graph_runs_the_flagged_branch():
     """graph_cuda.TileGraph on a toy level of four packed widths, each
     branch a captured graph writing its mark: level_control_kernel runs
-    exactly the branch that the host's choice (render.taken_branch of
-    render.level_predicates) takes for the live count, or none, and
-    writes that choice's flags and log entry, launch after launch."""
+    exactly the branch that the kernel's plain version
+    (graph_cuda.level_control_plain) flags for the live count, the width
+    of render.level_width, or none, and writes that version's flags and
+    log entry, launch after launch."""
     _require_cuda()
     from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core import types as T
@@ -701,8 +702,12 @@ def test_tile_graph_runs_the_flagged_branch():
         out.zero_()
         log.fill_(7)
         tg.launch()
-        want = R.level_predicates(st, rows, torch.tensor(n_live))
-        k = R.taken_branch(want)
+        want, _ = GC.level_control_plain(torch.tensor(n_live), rows,
+                                         GC.branch_codes(branches))
+        on = want.tolist()
+        k = on.index(1) if 1 in on else None
+        assert (k is None if n_live == 0
+                else branches[k] == R.level_width(st, rows, n_live))
         assert torch.equal(flags.cpu(), want)
         assert out.cpu().tolist() == [j + 1 if j == k else 0
                                       for j in range(4)]

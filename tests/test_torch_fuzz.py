@@ -79,27 +79,21 @@ def test_frame_matches_jax(goldens, monkeypatch, seed, hsize, vsize):
     frame is one 4,096-ray tile of an area-light scene: every level past
     the first runs packed (seed 15 has none: no ray of its frame survives
     the first level)."""
-    levels, packed = [], []
-    real_level, real_packed = R.shade_level, R._packed_shade_level
+    widths, real_step = [], R.shade_step
 
-    def level_spy(scene, o, *a, **kw):
-        levels.append(o.shape[0])
-        return real_level(scene, o, *a, **kw)
+    def step_spy(*a, **kw):
+        widths.append(kw["width"])
+        return real_step(*a, **kw)
 
-    def packed_spy(*a, **kw):
-        packed.append(kw["width"])
-        return real_packed(*a, **kw)
-
-    monkeypatch.setattr(R, "shade_level", level_spy)
-    monkeypatch.setattr(R, "_packed_shade_level", packed_spy)
+    monkeypatch.setattr(R, "shade_step", step_spy)
     img = R.render(scenes.random_scene(seed, device="cpu"),
                    scenes.fuzz_camera(hsize, vsize), quantize=True)
     want = goldens[f"s{seed}_{hsize}x{vsize}"]
     assert img.shape == want.shape == (vsize, hsize, 3)
     assert over_one_step(img, want) <= BUDGET
     if vsize == 64:
-        assert len(packed) == len(levels) - 1
-        assert packed or seed == 15
+        assert widths[0] is None and None not in widths[1:]
+        assert len(widths) > 1 or seed == 15
 
 
 def test_goldens_record_their_versions(goldens):

@@ -2,10 +2,11 @@
 the plain version of ``csrc/tile_graph.cu``'s ``level_control_kernel``)
 on the CPU:
 
-* its flags against ``render.level_predicates`` and its level-log entry
-  against ``render.level_width``, for every live count from 0 to
-  ``rows``, at 4,096 and 16,384 rows, on levels that pack and levels that
-  do not, with and without the dead level;
+* its flags and its level-log entry against ``render.level_width``, for
+  every live count from 0 to ``rows``, at 4,096 and 16,384 rows, on
+  levels that pack and levels that do not, with and without the dead
+  level, and ``graph_cuda.level_control_cpu`` (the CPU programs'
+  decision) writing the same into buffers;
 * the branch table the kernel takes (``graph_cuda.branch_codes``) against
   ``render.level_branches``;
 * the level logs of a CPU tile program and a CPU train program, microbatch
@@ -26,7 +27,7 @@ from raytracer_tpu_torch.core import train_program as TPG
 from raytracer_tpu_torch.ops import graph_cuda as GC
 from raytracer_tpu_torch.parallel import partition_scene, render_loss_and_grad
 from raytracer_tpu_torch.parallel import train as P
-from test_torch_tile_control import STATICS, one_bounce
+from test_torch_tile_control import STATICS, check_plain_decision, one_bounce
 from test_torch_tile_program import case
 from test_torch_train_control import paths_rays, paths_scene
 
@@ -35,22 +36,7 @@ from test_torch_train_control import paths_rays, paths_scene
 @pytest.mark.parametrize("rows", [4096, 16384])
 @pytest.mark.parametrize("kind", ["mesh", "spheres"])
 def test_plain_decision_equals_predicates_and_width(kind, rows, dead):
-    st = STATICS[kind]
-    branches = R.level_branches(st, rows, dead=dead)
-    codes = GC.branch_codes(branches)
-    live = torch.arange(rows + 1)
-    flags, log = GC.level_control_plain(live, rows, codes)
-    assert flags.dtype == log.dtype == torch.int32
-    assert torch.equal(flags, R.level_predicates(st, rows, live, dead=dead))
-    want = [-1] + [R.level_width(st, rows, n) or 0
-                   for n in range(1, rows + 1)]
-    assert log.tolist() == want
-    for n in (0, 1, rows // 16, rows // 16 + 1, rows):   # a scalar count
-        f, entry = GC.level_control_plain(torch.tensor(n), rows, codes)
-        assert torch.equal(f, flags[n]) and int(entry) == want[n]
-        k = R.taken_branch(f)
-        assert entry == (-1 if k is None or branches[k] == R.DEAD
-                         else codes[k])
+    check_plain_decision(STATICS[kind], rows, dead)
 
 
 @pytest.mark.parametrize("dead", [False, True], ids=["live", "dead"])

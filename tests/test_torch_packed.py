@@ -8,9 +8,11 @@ mesh, so K1's plain version sees packed widths that are not multiples of
 its 256-ray subtile. The JAX side runs op by op under
 ``jax.disable_jit()``, which also makes its width chain (a ``lax.cond``)
 run the chosen branch op by op; port against JAX holds to rtol 1e-5, atol
-1e-6. The port's packed level against its own full-width level is
-bit-equal once zero-weight spawns are parked, as ``color_at`` parks them:
-each ray's result does not depend on its batch."""
+1e-6, in both of the JAX package's modes (``thread_perm``: its outputs in
+live-first order, put back in row order through the order it returns).
+The port's packed level against its own full-width level is bit-equal
+once zero-weight spawns are parked, as ``color_at`` parks them: each
+ray's result does not depend on its batch."""
 
 import math
 
@@ -55,9 +57,9 @@ def scenes_():
     return same_tables(items(mesh=False), jitter=(0.5,), recursion_limit=3)
 
 
-def mesh_scene():
-    return build_scene(items(), jitter=(0.5,), recursion_limit=3,
-                       device="cpu")
+def mesh_scene(random_draws=False):
+    return build_scene(items(), jitter=None if random_draws else (0.5,),
+                       recursion_limit=3, device="cpu")
 
 
 def level_inputs(n_live, seed=0, n=N_RAYS):
@@ -84,20 +86,22 @@ def as_np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def check_level_vs_jax(js, ps, n_live, width, thread_perm):
+def check_level_vs_jax(js, ps, n_live, width, jax_thread_perm):
     """The port's packed level against the JAX package's on the same level
-    inputs, ``n_live`` of N_RAYS rays live (which picks ``width``)."""
+    inputs, ``n_live`` of N_RAYS rays live (which picks ``width``); the
+    JAX package's in its ``thread_perm`` mode put back in row order."""
     o, d, w = level_inputs(n_live)
     assert R._packed_width(N_RAYS, n_live) == width
     got = flat(R._packed_shade_level(
-        ps, *map(torch.as_tensor, (o, d, w)), None, thread_perm=thread_perm,
-        width=width))
+        ps, *map(torch.as_tensor, (o, d, w)), None, width=width))
     with jax.disable_jit():
-        want = flat(JR._packed_shade_level(
-            js, *map(jnp.asarray, (o, d, w)), None, thread_perm=thread_perm))
-    assert len(got) == len(want) == (8 if thread_perm else 7)
-    if thread_perm:
-        np.testing.assert_array_equal(as_np(got.pop()), as_np(want.pop()))
+        want = [as_np(x) for x in flat(JR._packed_shade_level(
+            js, *map(jnp.asarray, (o, d, w)), None,
+            thread_perm=jax_thread_perm))]
+    if jax_thread_perm:
+        back = np.argsort(want.pop())
+        want = [x[back] for x in want]
+    assert len(got) == len(want) == 7
     for k, (a, b) in enumerate(zip(got, want)):
         np.testing.assert_allclose(as_np(a), as_np(b), rtol=RTOL, atol=ATOL,
                                    err_msg=f"output {k}")
@@ -107,11 +111,11 @@ def check_level_vs_jax(js, ps, n_live, width, thread_perm):
 # Two of the four widths, the two that color_at's levels take below (a JAX
 # op compiles once per shape, and these share color_at's shapes);
 # tests/test_torch_packed_levels.py takes R/16 and R/2.
-@pytest.mark.parametrize("thread_perm", [False, True])
+@pytest.mark.parametrize("jax_thread_perm", [False, True])
 @pytest.mark.parametrize("n_live,width", [(800, N_RAYS // 4),
                                           (3600, N_RAYS)])
-def test_packed_level_matches_jax(scenes_, n_live, width, thread_perm):
-    check_level_vs_jax(*scenes_, n_live, width, thread_perm)
+def test_packed_level_matches_jax(scenes_, n_live, width, jax_thread_perm):
+    check_level_vs_jax(*scenes_, n_live, width, jax_thread_perm)
 
 
 # a 96x54 tile (glass_mesh(4) in chip_smoke's phase 4): its packed widths,
@@ -119,15 +123,22 @@ def test_packed_level_matches_jax(scenes_, n_live, width, thread_perm):
 N_ODD = 96 * 54
 
 
-@pytest.mark.parametrize("thread_perm", [False, True])
+@pytest.mark.parametrize("random_draws", [False, True])
 @pytest.mark.parametrize("n_live", [300, 1200, 2400, 5000])
-def test_packed_level_equals_full_width(n_live, thread_perm):
-    """Un-permuted, the packed level is the full-width level bit for bit,
-    the mesh's K1 queries included (K1's plain version pads each width to
-    whole subtiles). The rows past
-    ``width`` are parked with zero weight, where the full-width level
-    shades the dead rays' zero-weight spawns: equal once parked."""
-    ps = mesh_scene()
+def test_packed_level_equals_full_width(n_live, random_draws):
+    """The packed level against the full-width level bit for bit, the
+    mesh's K1 queries included (K1's plain version pads each width to
+    whole subtiles).
+
+    In the deterministic jitter sequence, against ``shade_level`` of the
+    whole level: the rows past ``width`` are parked with zero weight,
+    where the full-width level shades the dead rays' zero-weight spawns:
+    equal once parked. With random area-light draws, the k-th live ray
+    takes draw row k: against ``shade_level`` of the level's first
+    ``width`` rows in live-first order (the live rays in row order) with
+    the first ``width`` rows of the draws, each output row in its ray's
+    row, and every other row unshaded (zero, parked)."""
+    ps = mesh_scene(random_draws)
     o, d, w = map(torch.as_tensor, level_inputs(n_live, seed=1, n=N_ODD))
     width = R._packed_width(N_ODD, n_live)
     assert width % 256 or n_live == 5000
@@ -137,17 +148,25 @@ def test_packed_level_equals_full_width(n_live, thread_perm):
         return [colored] + [x for so, sd, sw in spawns for x in (
             *R.park_rays(so, sd, (sw > 0.0).any(-1)), sw)]
 
-    full = parked(R.shade_level(ps, o, d, w))
-    out = R._packed_shade_level(ps, o, d, w, thread_perm=thread_perm,
-                                width=width)
-    got = parked(out)
-    if thread_perm:
-        order = out[3]
-        assert sorted(order.tolist()) == list(range(N_ODD))
-        assert bool((w[order[:n_live]] > 0).any(-1).all())
-        got = [x[torch.argsort(order)] for x in got]
-    for k, (a, b) in enumerate(zip(got, full)):
-        assert torch.equal(a, b), f"output {k}"
+    if not random_draws:
+        got = parked(R._packed_shade_level(ps, o, d, w, width=width))
+        for k, (a, b) in enumerate(zip(got, parked(R.shade_level(
+                ps, o, d, w)))):
+            assert torch.equal(a, b), f"output {k}"
+    else:
+        jitter = R.draw_jitter(ps, N_ODD, torch.Generator().manual_seed(3))
+        live = (w > 0).any(-1)
+        sel = torch.argsort(~live, stable=True)[:width]
+        assert torch.equal(sel[:n_live], live.nonzero()[:, 0])
+        rest = torch.ones(N_ODD, dtype=torch.bool)
+        rest[sel] = False
+        got = flat(R._packed_shade_level(ps, o, d, w, jitter, width=width))
+        want = flat(R.shade_level(ps, o[sel], d[sel], w[sel],
+                                  tuple(j[:width] for j in jitter)))
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a[sel], b), f"output {k}"
+            unshaded = torch.tensor(R._UNSHADED[3 * k:3 * k + 3])
+            assert torch.equal(a[rest], unshaded.expand(int(rest.sum()), 3))
     assert float(got[1 + 2].abs().sum()) > 0.0     # live reflection weight
 
 
@@ -167,21 +186,22 @@ def test_color_at_packs_and_matches_jax(scenes_, monkeypatch):
     assert R.packs(ps.static, o.shape[0])
     assert not R.packs(ps.static, o.shape[0] - 16)   # under 4096 rays
     widths = []
-    real = R._packed_shade_level
+    real = R.shade_step
 
     def spy(*a, **kw):
-        widths.append((kw["width"], kw["thread_perm"]))
+        widths.append(kw["width"])
         return real(*a, **kw)
 
-    monkeypatch.setattr(R, "_packed_shade_level", spy)
+    monkeypatch.setattr(R, "shade_step", spy)
     with torch.no_grad():
         got = R.color_at(ps, o, d).numpy()
     with jax.disable_jit():
         want = np.asarray(JR.color_at(js, jnp.asarray(o.numpy()),
                                       jnp.asarray(d.numpy())))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-    # levels 1 to 3 at 4096, 1024 and 1024 rows (2489, 646, 509 live)
-    assert widths == [(4096, True), (1024, True), (1024, True)], widths
+    # level 0 whole, levels 1 to 3 at 4096, 1024 and 1024 rows (2489, 646,
+    # 509 live)
+    assert widths == [None, 4096, 1024, 1024], widths
     assert got.std() > 0.05
 
 

@@ -13,8 +13,8 @@ def scenes_():
     return same_tables(items(mesh=False), jitter=(0.5,), recursion_limit=3)
 
 
-@pytest.mark.parametrize("thread_perm", [False, True])
+@pytest.mark.parametrize("jax_thread_perm", [False, True])
 @pytest.mark.parametrize("n_live,width", [(200, N_RAYS // 16),
                                           (1600, N_RAYS // 2)])
-def test_packed_level_matches_jax(scenes_, n_live, width, thread_perm):
-    check_level_vs_jax(*scenes_, n_live, width, thread_perm)
+def test_packed_level_matches_jax(scenes_, n_live, width, jax_thread_perm):
+    check_level_vs_jax(*scenes_, n_live, width, jax_thread_perm)

@@ -1,11 +1,11 @@
 """The tile program's level control (``core/tile_program.py``) on the CPU,
-where it computes the same level flags as the card's conditional nodes
-and reads them on the host:
+where the control kernel's plain version computes the same level flags as
+the card's conditional nodes and the host reads them:
 
-* ``render.level_predicates`` against ``render.level_width`` for every
-  live count from 0 to ``rows`` at 4096, 8192 and 16384 rows, on packing
-  statics (a big mesh, an area light) and non-packing ones, read as
-  the CPU path reads them (``render.taken_branch``);
+* ``graph_cuda.level_control_plain`` against ``render.level_width`` for
+  every live count from 0 to ``rows`` at 4096, 8192 and 16384 rows, on
+  packing statics (a big mesh, an area light) and non-packing ones, read
+  as the CPU path reads them (``graph_cuda.level_control_cpu``);
 * the ``levels`` the program rebuilds from its level logs equal, tile by
   tile, the widths the eager loop (``graphs=False``) took, on a packing
   mesh scene, a blend scene and a random-jitter area-light scene;
@@ -26,6 +26,7 @@ from raytracer_tpu_torch.camera import Camera
 from raytracer_tpu_torch.core import render as R
 from raytracer_tpu_torch.core import tile_program as TP
 from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.ops import graph_cuda as GC
 from raytracer_tpu_torch.scene import build_scene, specs as S
 from test_torch_tile_program import _two_threads, case  # noqa: F401
 
@@ -37,24 +38,42 @@ STATICS = {
 }
 
 
+def check_plain_decision(st, rows, dead):
+    """``graph_cuda.level_control_plain`` of a level of ``rows`` rays
+    (branches ``render.level_branches(st, rows, dead=dead)``) for every
+    live count from 0 to ``rows`` against ``render.level_width``: the set
+    flag the width's branch, none set at 0 without the dead level and the
+    dead one with it (so exactly one set with the dead level), the log
+    entry the branch's code (-1 for none or the dead level); and a scalar
+    count through ``level_control_cpu``, as the CPU programs decide: the
+    same flags and entry written into buffers, the set flag's index
+    returned."""
+    branches = R.level_branches(st, rows, dead=dead)
+    codes = GC.branch_codes(branches)
+    live = torch.arange(rows + 1)
+    flags, log = GC.level_control_plain(live, rows, codes)
+    assert flags.dtype == log.dtype == torch.int32
+    assert tuple(flags.shape) == (rows + 1, len(branches))
+    assert flags.sum(-1).tolist() == [int(dead)] + [1] * rows
+    want = [R.DEAD if dead else None] + [R.level_width(st, rows, n)
+                                         for n in range(1, rows + 1)]
+    taken = flags.argmax(-1).tolist()
+    assert [branches[k] for k in taken[1 - dead:]] == want[1 - dead:]
+    assert log.tolist() == [-1] + [w or 0 for w in want[1:]]
+    for n in (0, 1, rows // 16, rows // 16 + 1, rows):   # a scalar count
+        f = torch.full((len(branches),), 7, dtype=torch.int32)
+        entry = torch.full((), 7, dtype=torch.int32)
+        k = GC.level_control_cpu(torch.tensor(n), rows, codes, f, entry)
+        assert torch.equal(f, flags[n]) and int(entry) == int(log[n])
+        assert k == (taken[n] if n or dead else None)
+
+
 @pytest.mark.parametrize("rows", [4096, 8192, 16384])
 @pytest.mark.parametrize("kind", list(STATICS))
 def test_predicates_equal_level_width(kind, rows):
     st = STATICS[kind]
     assert R.packs(st, rows) == (kind in ("mesh", "area"))
-    branches = R.level_branches(st, rows)
-    live = torch.arange(rows + 1)
-    flags = R.level_predicates(st, rows, live)
-    assert flags.dtype == torch.int32
-    assert tuple(flags.shape) == (rows + 1, len(branches))
-    assert int(flags.sum(-1).max()) == 1 and int(flags[0].sum()) == 0
-    for n in range(1, rows + 1):
-        k = R.taken_branch(flags[n])
-        assert branches[k] == R.level_width(st, rows, n), n
-    for n in (0, 1, rows // 16, rows // 16 + 1, rows):   # a scalar count
-        one = R.level_predicates(st, rows, torch.tensor(n))
-        assert torch.equal(one, flags[n])
-    assert R.taken_branch(flags[0]) is None
+    check_plain_decision(st, rows, dead=False)
 
 
 def _eager_widths(name, monkeypatch):

@@ -1,11 +1,12 @@
 """The train program's level control (``core/train_program.py``) on the
-CPU, where it computes the same level flags as the card's conditional
-nodes, the dead level's among them, and reads them on the host:
+CPU, where the control kernel's plain version computes the same level
+flags as the card's conditional nodes, the dead level's among them, and
+the host reads them:
 
-* ``render.level_predicates(..., dead=True)``: exactly one flag set for
-  every live count from 0 to ``rows``, on packing and non-packing
-  statics, the set one the width of ``render.level_width`` (the dead
-  level's at 0);
+* ``graph_cuda.level_control_plain`` with the dead level: exactly one
+  flag set for every live count from 0 to ``rows``, on packing and
+  non-packing statics, the set one the width of ``render.level_width``
+  (the dead level's at 0);
 * the ``levels`` the program rebuilds from its level logs equal,
   microbatch by microbatch, the widths the eager step (``graphs=False``)
   took, on a glass scene (its levels pack), the flagship (blend, no
@@ -43,7 +44,7 @@ from raytracer_tpu_torch.parallel import (
     partition_scene, render_loss, render_loss_and_grad)
 from raytracer_tpu_torch.parallel import train as P
 from raytracer_tpu_torch.scene import build_scene, specs as S
-from test_torch_tile_control import STATICS
+from test_torch_tile_control import STATICS, check_plain_decision
 from torch_port_helpers import assert_grads_match, same_tables
 
 
@@ -65,18 +66,7 @@ def test_predicates_with_dead_flag(kind, rows):
     branches = R.level_branches(st, rows, dead=True)
     assert branches[-1] == R.DEAD
     assert branches[:-1] == R.level_branches(st, rows)
-    live = torch.arange(rows + 1)
-    flags = R.level_predicates(st, rows, live, dead=True)
-    assert flags.dtype == torch.int32
-    assert tuple(flags.shape) == (rows + 1, len(branches))
-    assert bool((flags.sum(-1) == 1).all())
-    assert torch.equal(flags[:, :-1], R.level_predicates(st, rows, live))
-    want = [R.DEAD] + [R.level_width(st, rows, n) for n in range(1, rows + 1)]
-    assert [branches[k] for k in flags.argmax(-1).tolist()] == want
-    for n in (0, 1, rows // 16 + 1, rows):            # a scalar count
-        one = R.level_predicates(st, rows, torch.tensor(n), dead=True)
-        assert torch.equal(one, flags[n])
-        assert branches[R.taken_branch(one)] == want[n]
+    check_plain_decision(st, rows, dead=True)
 
 
 def paths_items():
