@@ -1314,8 +1314,8 @@ def block_rays(cam, dev):
     from raytracer_tpu_torch.camera import ray_grid
     from raytracer_tpu_torch.core.render import _block_order
 
-    order = torch.as_tensor(_block_order(cam.vsize, cam.hsize, 16),
-                            device=dev)
+    order = torch.tensor(_block_order(cam.vsize, cam.hsize, 16),
+                         device=dev)
     o, d = ray_grid(cam, device=dev)
     return o[order].contiguous(), d[order].contiguous(), order
 
@@ -3171,16 +3171,16 @@ def host_breakdown(reps=3):
     stays attached and every later graph launch costs the host
     milliseconds. dragons_equiv is built and one graphed frame captures
     its program; then ``reps`` graphed frames on the host's clock, split
-    as ``render`` spends it: set-up (the pixel ids in block order, their
-    upload and the camera's), enqueue (``frame``: per tile the ids' copy,
-    the jitter draws, one graph launch and two copies), wait
-    (``to_host``: the frame's one sync) and the host's scatter of the
-    pixels into the image (medians, s); ``render``'s own s/frame over
+    as ``render`` spends it: set-up (the program's kept pixel ids in
+    block order, ``TileProgram.order``, and the camera's upload), enqueue
+    (``frame``: per tile the ids' copy, the jitter draws, one graph
+    launch, the tile put to its pixels and the log's copy), wait
+    (``to_host``: the frame's one sync) and the host's reshape into the
+    image (medians, s); ``render``'s own s/frame over
     ``reps`` frames (median); the host's time in one launch of the u8
     tile graph alone after a sync (median of 10, ms), and in 36 launches
     back to back (the first 3 and the last 3, ms: a launch waits once the
     card's queue is full)."""
-    import numpy as np
     import torch
 
     from raytracer_tpu_torch import scenes
@@ -3201,18 +3201,16 @@ def host_breakdown(reps=3):
         R.render(scene, cam, quantize=True)
         frames.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        order, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, prog.tile,
-                                          scene.device)
+        idx_tiles = prog.order(cam.vsize, cam.hsize)
         inv, consts = R.camera_consts(cam, scene.device)
         t1 = time.perf_counter()
         with torch.no_grad():
             prog.set_camera(inv, consts, cam.hsize)
-            frame = prog.frame(scene, idx_tiles, True, None)
+            frame = prog.frame(scene, idx_tiles, True, None, pixels=n)
         t2 = time.perf_counter()
-        img = prog.to_host(frame).numpy()[:n]
+        img = prog.to_host(frame).numpy()
         t3 = time.perf_counter()
-        out = np.empty_like(img)
-        out[order] = img
+        img.reshape(cam.vsize, cam.hsize, 3)
         t4 = time.perf_counter()
         for k, a, b in (("setup", t0, t1), ("enqueue", t1, t2),
                         ("wait", t2, t3), ("scatter", t3, t4)):

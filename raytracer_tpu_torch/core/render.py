@@ -703,10 +703,12 @@ def camera_consts(camera, device):
     return inv, consts
 
 
+@functools.lru_cache(maxsize=8)
 def _block_order(h, w, block):
     """Flat pixel indices in square-block-major order. Each consecutive
     256 ids form one 16x16 pixel square: one CTA of the mesh kernel, whose
-    chunk gates then see a tight ray frustum."""
+    chunk gates then see a tight ray frustum. Built once per (h, w,
+    block) and shared, so the array is read-only."""
     block = max(min(block, h, w), 1)
     cols = []
     for y0 in range(0, h, block):
@@ -714,17 +716,26 @@ def _block_order(h, w, block):
             ys = np.arange(y0, min(y0 + block, h))
             xs = np.arange(x0, min(x0 + block, w))
             cols.append((ys[:, None] * w + xs[None, :]).ravel())
-    return np.concatenate(cols)
+    order = np.concatenate(cols)
+    order.setflags(write=False)
+    return order
 
 
 def _order_tiles(h, w, tile, device):
     """(host order [n], idx_tiles [n_tiles, tile] on device); padding
     repeats pixel 0."""
     order = _block_order(h, w, 16)     # 16x16 = one 256-ray subtile
-    n_pad = -(h * w) % tile
-    padded = np.pad(order, (0, n_pad)) if n_pad else order
-    idx_tiles = torch.as_tensor(padded.reshape(-1, tile), device=device)
-    return order, idx_tiles
+    padded = np.pad(order, (0, -(h * w) % tile))       # a writable copy
+    return order, torch.as_tensor(padded.reshape(-1, tile), device=device)
+
+
+def put_tile(image, ti, idx, colors):
+    """Writes tile ``ti``'s ``colors`` [tile, 3] to their pixels of
+    ``image`` [n, 3] (``idx``: the tile's pixel ids, a row of
+    :func:`_order_tiles`' ``idx_tiles``), the last tile's padding
+    dropped: a frame's tiles put so are the frame in image order."""
+    k = min(len(idx), len(image) - ti * len(idx))
+    image.index_copy_(0, idx[:k], colors[:k])
 
 
 def pick_tile_rays(static: T.SceneStatic) -> int:
@@ -770,14 +781,20 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
     launched from the host, one live-count read per level. Both give the
     same frame bit for bit. The frame crosses to the host once.
 
+    The tiles follow the 16x16 block order (:func:`_order_tiles`); each
+    tile's colours go to their pixels on the device (:func:`put_tile`),
+    so the frame crosses in image order. The tile program keeps the
+    order's pixel ids on the device for the next frames of the same size
+    (:meth:`~raytracer_tpu_torch.core.tile_program.TileProgram.order`).
+
     Matmuls and convolutions are held to full f32 (:func:`full_f32`).
 
     With the span recorder on (``utils/profiling``) a frame records the
     span ``frame`` and its phases: ``frame.prepare`` (everything before the
-    first tile's launch) and ``frame.scatter``, and through the tile
-    program ``frame.capture`` (its first use), ``frame.enqueue``,
-    ``frame.wait`` (the host blocked on the card) and ``frame.settle``
-    (the level logs read).
+    first tile's launch) and ``frame.scatter`` (the host's reshape), and
+    through the tile program ``frame.capture`` (its first use),
+    ``frame.enqueue``, ``frame.wait`` (the host blocked on the card) and
+    ``frame.settle`` (the level logs read).
     """
     with P.span("frame"):
         with P.span("frame.prepare"):
@@ -787,8 +804,6 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
                 tile_rays = pick_tile_rays(scene.static)
             n = camera.vsize * camera.hsize
             tile = min(tile_rays, n)
-            order, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile,
-                                            device)
             inv, consts = camera_consts(camera, device)
             limit = scene.static.recursion_limit
             if draws_jitter(scene.static):
@@ -796,20 +811,23 @@ def render(scene: T.Scene, camera, *, tile_rays=None, quantize=False,
             if graphs:
                 from raytracer_tpu_torch.core.tile_program import program_for
                 prog = program_for(scene, tile, limit)
+                idx_tiles = prog.order(camera.vsize, camera.hsize)
                 prog.set_camera(inv, consts, camera.hsize)
+            else:
+                _, idx_tiles = _order_tiles(camera.vsize, camera.hsize, tile,
+                                            device)
         with torch.no_grad():
             if graphs:
                 frame = prog.to_host(prog.frame(scene, idx_tiles, quantize,
-                                                generator))
+                                                generator, pixels=n))
             else:
-                outs = []
-                for idx in idx_tiles:
+                frame = torch.empty(
+                    (n, 3), dtype=torch.uint8 if quantize else torch.float32,
+                    device=device)
+                for ti, idx in enumerate(idx_tiles):
                     o, d = _primary_rays(inv, consts, idx, camera.hsize)
                     c = color_at(scene, o, d, limit, generator)
-                    outs.append(quantize_u8(c) if quantize else c)
-                frame = torch.cat(outs).cpu()
+                    put_tile(frame, ti, idx, quantize_u8(c) if quantize else c)
+                frame = frame.cpu()
         with P.span("frame.scatter"):
-            img = frame.numpy()[:n]
-            out = np.empty_like(img)
-            out[order] = img
-            return out.reshape(camera.vsize, camera.hsize, 3)
+            return frame.numpy().reshape(camera.vsize, camera.hsize, 3)

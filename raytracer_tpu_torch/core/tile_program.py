@@ -31,10 +31,12 @@ A :class:`TileProgram` runs a tile as one graph:
 3. the finish: the image, quantized if asked, into the tile buffer.
 
 ``frame`` enqueues per tile the copy of its pixel ids, the draws of its
-jitter, one launch of the tile graph and the copies of the tile and of
-its level log into the frame's buffers. Nothing is read back until the
-frame crosses to the host (:meth:`TileProgram.to_host`), its level logs in
-the same sync.
+jitter, one launch of the tile graph and the copies of the tile (into
+the frame's buffer, or, for ``render``, straight to its pixels) and of
+its level log. The pixel ids of a frame size's tiles are built once and
+kept on the device (:meth:`TileProgram.order`). Nothing is read back
+until the frame crosses to the host (:meth:`TileProgram.to_host`), its
+level logs in the same sync.
 
 Each part (level 0, each branch of each level, the finish) is captured
 by PyTorch as a graph of its own that keeps its ``cudaGraph_t``, and
@@ -127,8 +129,9 @@ class TileProgram:
     (seconds spent warming up, capturing and instantiating: the clock of
     the ``frame.capture`` span), ``replays``
     (tile graph launches), ``syncs`` (host reads of the card: one per
-    frame, :meth:`to_host`) and ``rows_shaded`` (the rows the levels
-    shaded, read from the level logs). ``frame_stats``: ``tiles``,
+    frame, :meth:`to_host`), ``rows_shaded`` (the rows the levels
+    shaded, read from the level logs) and ``orders_built`` (the frame
+    orders put on the device, :meth:`order`). ``frame_stats``: ``tiles``,
     ``replays`` and ``syncs`` of the last frame. ``levels``: (level,
     rays, width) of every level run since the camera was last set, tile
     by tile, read from the level logs (width None: the level ran whole).
@@ -159,7 +162,8 @@ class TileProgram:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
         self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
-                          syncs=0, rows_shaded=0)
+                          syncs=0, rows_shaded=0, orders_built=0)
+        self._order = None        # ((h, w), idx_tiles on the device)
         self.frame_stats = dict(tiles=0, replays=0, syncs=0)
         self._levels = []
 
@@ -315,6 +319,17 @@ class TileProgram:
         self.hsize.fill_(hsize)
         self._levels = []
 
+    def order(self, h: int, w: int):
+        """The pixel ids of an h x w frame's tiles, [n_tiles, tile] on the
+        device (``render._order_tiles``): built and uploaded at the first
+        frame of that size (``stats["orders_built"]``), then kept for the
+        next frames until one of another size."""
+        if self._order is None or self._order[0] != (h, w):
+            self._order = (h, w), R._order_tiles(h, w, self.tile,
+                                                 self.device)[1]
+            self.stats["orders_built"] += 1
+        return self._order[1]
+
     def run_tile(self, scene, idx, generator, quantize: bool):
         """Enqueues one tile of ``tile`` pixel ids: its colours [tile, 3]
         (uint8 with ``quantize``) in the program's tile buffer, valid
@@ -351,12 +366,16 @@ class TileProgram:
         done.record()
         self._pending.append((host, quantize, done))
 
-    def frame(self, scene, idx_tiles, quantize: bool, generator):
+    def frame(self, scene, idx_tiles, quantize: bool, generator,
+              pixels=None):
         """Enqueues every tile of ``idx_tiles`` [n_tiles, tile] of a frame
         into one frame buffer on the device, returned as [n_tiles * tile,
-        3]: one tile graph launch per tile, no read of the card, with the
-        camera and the frame's width of :meth:`set_camera`. Read it through
-        :meth:`to_host`.
+        3] in tile order: one tile graph launch per tile, no read of the
+        card, with the camera and the frame's width of :meth:`set_camera`.
+        With ``pixels``, the frame's pixel count (``idx_tiles`` of
+        :meth:`order`), each tile goes straight to its pixels
+        (``render.put_tile``) and the frame is returned in image order,
+        [pixels, 3]. Read it through :meth:`to_host`.
 
         With the span recorder on, the loop is the span
         ``frame.enqueue``, and on the card a pair of timing events, one
@@ -364,12 +383,12 @@ class TileProgram:
         gives the open root span the frame's device time
         (``attrs["device_ms"]``, read at :meth:`to_host`'s sync)."""
         self.frame_stats = dict(tiles=len(idx_tiles), replays=0, syncs=0)
-        out = self._buf("frame", (len(idx_tiles), self.tile, 3),
-                        torch.uint8 if quantize else F32)
+        dtype = torch.uint8 if quantize else F32
+        out = self._buf("frame", (len(idx_tiles), self.tile, 3), dtype) \
+            if pixels is None else self._buf("image", (pixels, 3), dtype)
         logs = self._buf("logs", (len(idx_tiles), len(self.rows)),
                          torch.int32)
-        tile = self._buf("tile", (self.tile, 3),
-                         torch.uint8 if quantize else F32)
+        tile = self._buf("tile", (self.tile, 3), dtype)
         with P.span("frame.enqueue"):
             timing = self.capture and P.enabled()
             if timing:
@@ -378,7 +397,10 @@ class TileProgram:
                 start.record()
             for ti, idx in enumerate(idx_tiles):
                 self._enqueue(scene, idx, generator, quantize)
-                out[ti].copy_(tile)
+                if pixels is None:
+                    out[ti].copy_(tile)
+                else:
+                    R.put_tile(out, ti, idx, tile)
                 logs[ti].copy_(self.log)
             if timing:
                 end.record()
@@ -388,13 +410,14 @@ class TileProgram:
 
     def to_host(self, t):
         """``t`` (a frame or a tile of this program, or what was made of
-        it on the device) on the host: the frame's one sync, which also
-        brings its level logs. Rebuilds ``levels`` from the logs, adds
-        the launches of the parts that ran to the counters and gives the
-        rows the levels shaded to the open root span
+        it on the device) copied to the host, a copy on the CPU too (the
+        program's buffers are the next frame's): the frame's one sync,
+        which also brings its level logs. Rebuilds ``levels`` from the
+        logs, adds the launches of the parts that ran to the counters and
+        gives the rows the levels shaded to the open root span
         (``attrs["rows_shaded"]``)."""
         with P.span("frame.wait"):
-            out = t.cpu()
+            out = t.to("cpu", copy=True)
         self.stats["syncs"] += 1
         self.frame_stats["syncs"] += 1
         with P.span("frame.settle"):

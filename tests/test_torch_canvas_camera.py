@@ -105,6 +105,11 @@ def test_tile_rays_match_jax():
 def test_block_order_matches_jax(h, w):
     order = R._block_order(h, w, 16)
     np.testing.assert_array_equal(order, JR._block_order(h, w, 16))
+    # built once per (h, w, block) and shared read-only
+    assert R._block_order(h, w, 16) is order
+    assert not order.flags.writeable
+    with pytest.raises(ValueError):
+        order[0] = 1
     assert np.array_equal(np.sort(order), np.arange(h * w))
     if h % 16 == 0 and w % 16 == 0:
         # every 256 consecutive ids are one 16x16 pixel block

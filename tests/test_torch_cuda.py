@@ -871,6 +871,60 @@ def test_graphed_frame_is_one_launch_per_tile(name, monkeypatch):
         assert any(w is not None for _, _, w in prog.levels)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["glass_mesh4", "flagship"])
+def test_graphed_frame_in_pixel_order_on_card(name):
+    """``render``'s graphed quantized frame, each tile put to its pixels on
+    the card (``render.put_tile``), is byte-equal to the host's
+    ``out[order] = img`` over ``TileProgram.frame``'s tile-order frame,
+    and so is ``graphs=False``; the last tile's padding is dropped, the
+    frame's enqueue makes no synchronizing call, and a second frame of
+    the size reuses the order on the card."""
+    _require_cuda()
+    from raytracer_tpu_torch.core import render as R
+    from raytracer_tpu_torch.core import tile_program as TP
+
+    if name == "glass_mesh4":           # mesh, packed levels
+        items, cam = scenes.glass_mesh(instances=4, hsize=96, vsize=54)
+        tile = 2048                     # 5,184 pixels: 3 tiles, 960 pad
+    else:                               # blend levels, packed
+        items, cam = scenes.flagship(100, 75)
+        tile = 4096                     # 7,500 pixels: 2 tiles, 692 pad
+    sc = build_scene(items, device="cuda")
+    n = cam.vsize * cam.hsize
+    got = render(sc, cam, tile_rays=tile, quantize=True)     # captures
+    prog = TP.program_of(sc)
+    assert prog.stats["orders_built"] == 1
+    order, idx_tiles = R._order_tiles(cam.vsize, cam.hsize, tile, "cuda")
+    assert torch.equal(prog.order(cam.vsize, cam.hsize), idx_tiles)
+    inv, consts = R.camera_consts(cam, "cuda")
+    prog.set_camera(inv, consts, cam.hsize)
+    with torch.no_grad():
+        img = prog.to_host(prog.frame(sc, idx_tiles, True, None))
+    img = img.numpy()[:n]
+    want = np.empty_like(img)
+    want[order] = img
+    want = want.reshape(cam.vsize, cam.hsize, 3)
+    assert want.std() > 0
+    assert got.tobytes() == want.tobytes()
+    prog.set_camera(inv, consts, cam.hsize)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            on_card = prog.frame(sc, prog.order(cam.vsize, cam.hsize), True,
+                                 None, pixels=n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert on_card.shape == (n, 3)
+    assert prog.to_host(on_card).numpy().tobytes() == want.tobytes()
+    again = render(sc, cam, tile_rays=tile, quantize=True)
+    assert again.tobytes() == want.tobytes()
+    assert prog.stats["orders_built"] == 1
+    eager = render(sc, cam, tile_rays=tile, quantize=True, graphs=False)
+    assert eager.tobytes() == want.tobytes()
+
+
 GATHER_DTYPES = [torch.float32, torch.int32, torch.int64, torch.bool]
 
 

@@ -176,7 +176,7 @@ def frame_rays(device="cpu"):
     cam = Camera(64, 64, math.pi / 3).with_transform(
         tf.view_transform((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0)))
     o, d = ray_grid(cam, device=device)
-    order = torch.as_tensor(R._block_order(64, 64, 16))
+    order = torch.tensor(R._block_order(64, 64, 16))
     return o[order].contiguous(), d[order].contiguous()
 
 

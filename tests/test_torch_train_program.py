@@ -64,7 +64,7 @@ AREA = S.AreaLight(corner=(-3.0, 6.0, -4.0), uvec=(2.0, 0.0, 0.0), usteps=2,
 def block_rays(cam):
     """The camera's rays in render's 16x16-block order."""
     o, d = ray_grid(cam, device="cpu")
-    order = torch.as_tensor(R._block_order(cam.vsize, cam.hsize, 16))
+    order = torch.tensor(R._block_order(cam.vsize, cam.hsize, 16))
     return o[order].contiguous(), d[order].contiguous()
 
 
