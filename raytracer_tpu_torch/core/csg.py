@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.utils import profiling as P
 
 
 def _op_allowed(op_code, l_hit, in_l, in_r):
@@ -41,15 +42,18 @@ def apply_csg(scene: T.Scene, ts, static_gids: np.ndarray, c_static: int):
 
     ``ts`` is [R, C]; only the first ``c_static`` columns (gids
     ``static_gids``) can belong to CSG trees. Returns the filtered ts (a
-    new tensor; the input is not written).
+    new tensor; the input is not written). The body is the stage mark
+    ``csg_filter`` (``utils/profiling.mark``), on the shading path and on
+    the shadow path alike.
     """
     if not scene.static.csg_nodes:
         return ts
-    for idx, pairwise, plan in _root_plans(scene, static_gids):
-        sub = ts[:, idx]                                    # [R, Cr]
-        new_sub = (_filter_pairwise if pairwise else _filter_sorted)(sub,
-                                                                     plan)
-        ts = ts.index_copy(1, idx, new_sub)
+    with P.mark("csg_filter"):
+        for idx, pairwise, plan in _root_plans(scene, static_gids):
+            sub = ts[:, idx]                                # [R, Cr]
+            new_sub = (_filter_pairwise if pairwise
+                       else _filter_sorted)(sub, plan)
+            ts = ts.index_copy(1, idx, new_sub)
     return ts
 
 

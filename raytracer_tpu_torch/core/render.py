@@ -173,6 +173,13 @@ def draw_jitter(scene, rows: int, generator, out=None):
     return out
 
 
+def area_rays(static: T.SceneStatic, rows: int) -> int:
+    """The shadow-sample rays that a level body of ``rows`` rows queries
+    in its area-light stage: ``rows`` x S for each area light (S = usteps
+    x vsteps)."""
+    return rows * sum(us * vs for us, vs in static.area_steps)
+
+
 def _area_light_contrib(scene, ai, over, eyev, normalv, base_color, mat_rows,
                         jitter, live=None, jitter_phase=0):
     """Shadow fraction + sampled Phong for area light ``ai``, all in
@@ -180,7 +187,8 @@ def _area_light_contrib(scene, ai, over, eyev, normalv, base_color, mat_rows,
     intersect.shadow_blocked (the mesh kernel sees one call of R*S rays),
     and Phong broadcasting [R, 1, ...] rows against [R, S, 3] samples.
     ``jitter``: this light's random draws [R, S, 4], or None in the
-    deterministic sequence mode."""
+    deterministic sequence mode. :func:`shade_level` calls it inside the
+    stage mark ``area_light`` (``utils/profiling.mark``)."""
     st = scene.static
     s_total = st.area_steps[ai][0] * st.area_steps[ai][1]
     corner = scene.alight_corner[ai]
@@ -319,11 +327,12 @@ def shade_level(scene: T.Scene, o, d, weight, jitter=None):
 
     jitter_phase = 0  # the shared cycle advances 4*S per area light
     for ai, (us, vs) in enumerate(st.area_steps):
-        surface = surface + _area_light_contrib(
-            scene, ai, over_sh, eyev, normalv, base_color, mat_rows,
-            None if jitter is None else jitter[ai], live=has,
-            jitter_phase=jitter_phase,
-        )
+        with P.mark("area_light"):
+            surface = surface + _area_light_contrib(
+                scene, ai, over_sh, eyev, normalv, base_color, mat_rows,
+                None if jitter is None else jitter[ai], live=has,
+                jitter_phase=jitter_phase,
+            )
         jitter_phase += 4 * us * vs
 
     surface = torch.where(has[:, None], surface, 0.0)
@@ -610,7 +619,9 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
     nothing for a backward (``render(..., graphs=False)``); with
     gradients on they run whole, as in a train program. Every level draws
     its jitter at its whole width, run or not (see the module docstring).
-    A packed level's outputs come back in its rays' order.
+    A packed level's outputs come back in its rays' order. With the span
+    recorder on, each level that runs adds its :func:`area_rays` at its
+    width to the open root span's ``attrs["area_rays"]``.
 
     ``remat=True`` runs every level under ``torch.utils.checkpoint``
     (:func:`_remat`): the backward pass recomputes each level's trace, K1
@@ -648,6 +659,8 @@ def color_at(scene: T.Scene, origins, directions, limit=None,
             colored, refl, refr = _remat(step, scene, o, d, w, jitter)
         else:
             colored, refl, refr = step(scene, o, d, w, jitter)
+        if st.area_steps:
+            P.add_to_root("area_rays", area_rays(st, width or rows[level]))
         img = img + colored.reshape(-1, r, 3).sum(0)
         if level == len(rows) - 1:
             break

@@ -71,8 +71,10 @@ K1b launches at capture (taken back off the counters: a capture launches
 nothing). :meth:`TileProgram.to_host` reads the logs with the frame,
 rebuilds ``levels``, adds each part's launches once for every time it
 ran and counts the rows the levels shaded (``rows_shaded``: a level's
-logged width, or its rows where it ran whole), which it gives the open
-root span as ``attrs["rows_shaded"]``.
+logged width, or its rows where it ran whole) and the shadow-sample rays
+of their area-light stage (``area_rays``: ``render.area_rays`` at that
+width), which it gives the open root span as ``attrs["rows_shaded"]``
+and ``attrs["area_rays"]``.
 
 On a CPU scene the program runs the same parts on the same buffers
 without capture: the kernel's plain version writes the same flags and
@@ -130,7 +132,9 @@ class TileProgram:
     the ``frame.capture`` span), ``replays``
     (tile graph launches), ``syncs`` (host reads of the card: one per
     frame, :meth:`to_host`), ``rows_shaded`` (the rows the levels
-    shaded, read from the level logs) and ``orders_built`` (the frame
+    shaded, read from the level logs), ``area_rays`` (the shadow-sample
+    rays of their area-light stage, ``render.area_rays``, from the same
+    logs) and ``orders_built`` (the frame
     orders put on the device, :meth:`order`). ``frame_stats``: ``tiles``,
     ``replays`` and ``syncs`` of the last frame. ``levels``: (level,
     rays, width) of every level run since the camera was last set, tile
@@ -162,7 +166,8 @@ class TileProgram:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
         self.stats = dict(captured=0, bodies=0, capture_s=0.0, replays=0,
-                          syncs=0, rows_shaded=0, orders_built=0)
+                          syncs=0, rows_shaded=0, area_rays=0,
+                          orders_built=0)
         self._order = None        # ((h, w), idx_tiles on the device)
         self.frame_stats = dict(tiles=0, replays=0, syncs=0)
         self._levels = []
@@ -414,27 +419,29 @@ class TileProgram:
         program's buffers are the next frame's): the frame's one sync,
         which also brings its level logs. Rebuilds ``levels`` from the
         logs, adds the launches of the parts that ran to the counters and
-        gives the rows the levels shaded to the open root span
-        (``attrs["rows_shaded"]``)."""
+        gives the rows the levels shaded and their area-light rays to the
+        open root span (``attrs["rows_shaded"]``, ``attrs["area_rays"]``)."""
         with P.span("frame.wait"):
             out = t.to("cpu", copy=True)
         self.stats["syncs"] += 1
         self.frame_stats["syncs"] += 1
         with P.span("frame.settle"):
-            rows, root = self.settle(), P.current_root()
+            counts, root = self.settle(), P.current_root()
             if root is not None:
-                root.attrs["rows_shaded"] = rows
+                root.attrs.update(counts)
             P.resolve_device_spans()
         return out
 
     def settle(self):
         """Reads the level logs on their way to the host, extending
-        ``levels``, counting the launches of the parts that ran and the
-        rows their levels shaded (the logged width, or the level's rows
-        where it ran whole), which it returns. After :meth:`to_host` they
-        have arrived; otherwise it waits for them."""
+        ``levels``, counting the launches of the parts that ran, the rows
+        their levels shaded (the logged width, or the level's rows where
+        it ran whole) and the shadow-sample rays of the area-light stage
+        at those widths (``render.area_rays``), which it returns as
+        ``{"rows_shaded": ..., "area_rays": ...}``. After :meth:`to_host`
+        they have arrived; otherwise it waits for them."""
         pending, self._pending = self._pending, []
-        shaded = 0
+        shaded = area = 0
         for logs, quantize, done in pending:
             if done is not None:
                 done.synchronize()
@@ -442,6 +449,7 @@ class TileProgram:
                 self._count(("level", 0))
                 self._levels.append((0, self.rows[0], None))
                 shaded += self.rows[0]
+                area += R.area_rays(self.static, self.rows[0])
                 for level in range(1, len(self.rows)):
                     if log[level] < 0:
                         continue
@@ -449,9 +457,12 @@ class TileProgram:
                     self._count((level, width))
                     self._levels.append((level, self.rows[level], width))
                     shaded += width or self.rows[level]
+                    area += R.area_rays(self.static,
+                                        width or self.rows[level])
                 self._count(("finish", quantize))
         self.stats["rows_shaded"] += shaded
-        return shaded
+        self.stats["area_rays"] += area
+        return dict(rows_shaded=shaded, area_rays=area)
 
     def _count(self, key):
         if self.capture:

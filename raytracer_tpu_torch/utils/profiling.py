@@ -30,7 +30,12 @@ clock of ``torch.profiler``'s Kineto events (``start_ns()``), so that a
 span can be laid beside the kernels it launched.
 
 Spans are plain host timers: they are not ``record_function`` ranges,
-which the profiler would mirror onto the device's timeline.
+which the profiler would mirror onto the device's timeline. Stage marks
+(:func:`mark`: ``area_light`` around ``core/render._area_light_contrib``,
+``csg_filter`` around ``core/csg.apply_csg``'s body) are such ranges, opened
+only while the recorder is on and ``torch.profiler`` runs, so that the
+kernels an eager frame launches inside a stage can be summed by stage.
+:func:`add_to_root` adds a count to the open root span's ``attrs``.
 """
 
 from __future__ import annotations
@@ -170,6 +175,37 @@ def span(name: str):
     if _on:
         return Span(name, True)
     return NOOP
+
+
+def mark(name: str):
+    """A stage mark ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` range while the recorder is on and
+    torch's profiler is running, outside a CUDA graph capture; else
+    :data:`NOOP` (one flag test while the recorder is off). A range adds
+    no work on the device: the kernels launched inside it are attributed
+    to it, so an eager frame's device time can be summed by stage; a
+    graph replay's kernels are launched by the replay, not inside it."""
+    if _on and _profiler_on() and not _capturing():
+        from torch.profiler import record_function
+
+        return record_function(name)
+    return NOOP
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def add_to_root(key: str, n) -> None:
+    """Adds ``n`` to the open root span's ``attrs[key]`` (from 0) while
+    the recorder is on; nothing otherwise, or without an open root."""
+    if _on:
+        root = current_root()
+        if root is not None:
+            root.attrs[key] = root.attrs.get(key, 0) + n
 
 
 def timed(name: str):
