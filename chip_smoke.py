@@ -62,6 +62,17 @@ Phases (any failure exits non-zero before the final line):
    (no pattern): 20 calls replayed from one CUDA graph and a loop of
    eager calls, the kernels of one call captured alone, and the bound:
    76 bytes a patterned row, 28 a row without, over 3.35 TB/s.
+   (5c) csg_area (scenes.CSG_AREA_YAML: csg.rs's tree under a 10x10 area
+   light, 640x360, random jitter): one graphed frame after the capturing
+   one, counted ("csg" a frame must be the eager frame's kernel calls,
+   "csg_plain" 0), then one eager frame with the table of every
+   csg_filter_kernel call recorded, each call's output held against the
+   plain chain it replaces (ts[:, idx], csg._filter_pairwise, index_copy)
+   bit for bit. Then kernel and plain chain timed, 20 calls replayed from
+   one CUDA graph, at the shadow path's shape (a tile's 409,600 x 16) and
+   the shading path's (4,096 x 16), with the bound: each t read once and
+   written once, 8 bytes an entry, over 3.35 TB/s. Alone:
+   ``python3 chip_smoke.py --csg-filter`` (one JSON line).
 6. the CLI path (launch counters zeroed again just before its frames):
    ``python3 -m raytracer_tpu_torch --scene benchmarks/dragons_equiv.yaml
    --obj teapot.obj`` once as a subprocess (teapot.obj written by
@@ -254,7 +265,8 @@ one JSON object with the kernels' numbers (launches: the main-path runs
 of phases 5 to 10; level_control_kernel's: phases 7 and 10;
 backward_control_kernel's: phase 7;
 table_gather's: phases 5 and 7, by kernel, its times from 7e's largest
-call of a real gradient, each replay's beside them; pattern_color's:
+call of a real gradient, each replay's beside them; csg_filter's: phase
+5c's frames, its times from 5c's shadow call; pattern_color's:
 phase 5's frames, its times from 5b's flagship body of 16,384 rows,
 the others beside them), and the device JSON object.
 Imports nothing of JAX or of the JAX package. The phase-2 cases come from
@@ -264,6 +276,7 @@ raytracer_tpu_torch/mesh_cases.py, which tests/test_torch_*.py use too.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -592,6 +605,31 @@ def soup_cases(mc, dev):
             ("padding: rays through", case(padding_case(True))),
             ("padding: rays away", case(padding_case(False)))]
     return out
+
+
+class CsgRecorder:
+    """Wraps ops.csg_cuda.csg_filter (as csg.apply_csg calls it) and keeps
+    a copy of every call's table, with its packed plan, made outside a
+    capture and of more than zero rows; the calls still go through."""
+
+    def __init__(self, cc):
+        self.cc = cc
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = self.cc.csg_filter
+        self.cc.csg_filter = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cc.csg_filter = self.orig
+
+    def __call__(self, ts, plan):
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing() and ts.shape[0]:
+            self.calls.append((ts.detach().clone(), plan))
+        return self.orig(ts, plan)
 
 
 class PatternRecorder:
@@ -1042,6 +1080,97 @@ def pattern_phase(pc, cells, frames):
             log(f"  [5b] {name}: {json.dumps(out['timing'][name])}")
     out.update(max_abs_err=max_err, rows_checked=checked,
                differing_rows=differing)
+    return out
+
+
+# a CSG filter entry: its t read once and written once
+CSG_ENTRY_BYTES = 8
+
+
+def csg_numbers(cc, ts, idx, plan, packed):
+    """5c: csg_filter_kernel and the plain chain it replaces (ts[:, idx],
+    csg._filter_pairwise, index_copy) on one recorded table, both timed
+    over 20 calls replayed from one CUDA graph (the device's pace:
+    ``graph_ms``, ``plain_graph_ms``), and the bytes bound over 3.35
+    TB/s."""
+    from raytracer_tpu_torch.core import csg as CSG
+
+    def kernel():
+        return cc.csg_filter(ts, packed)
+
+    def plain():
+        return ts.index_copy(1, idx, CSG._filter_pairwise(ts[:, idx], plan))
+
+    nbytes = ts.numel() * CSG_ENTRY_BYTES
+    res = dict(rows=ts.shape[0], cols=ts.shape[1], nodes=len(plan),
+               graph_ms=graph_ms(kernel), plain_graph_ms=graph_ms(plain),
+               bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    res["bound_share"] = res["bound_ms"] / res["graph_ms"]
+    return res
+
+
+def csg_phase(dev):
+    """5c (see the module's docstring): csg_area's graphed frame counted,
+    its eager frame's kernel calls held bit for bit against the plain
+    chain, and csg_numbers at the shadow and shading shapes."""
+    import torch
+
+    from raytracer_tpu_torch import scenes
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.core import intersect as I
+    from raytracer_tpu_torch.core.render import render
+    from raytracer_tpu_torch.ops import csg_cuda as CC
+    from raytracer_tpu_torch.ops import mesh_cuda as MC
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    cam, sc = parse_scene(scenes.CSG_AREA_YAML, device=dev)
+    render(sc, cam, quantize=True)                       # captures
+    torch.cuda.synchronize()
+    before = MC.host_counts()
+    graphed = render(sc, cam, quantize=True)
+    per_frame = {k: MC.host_counts()[k] - before[k]
+                 for k in ("csg", "csg_plain")}
+    with torch.no_grad(), CsgRecorder(CC) as rec:
+        eager = render(sc, cam, quantize=True, graphs=False)
+    if per_frame != {"csg": len(rec.calls), "csg_plain": 0}:
+        raise AssertionError(f"csg_area: graphed frame counted {per_frame}; "
+                             f"the eager frame ran {len(rec.calls)} kernel "
+                             f"calls")
+    if not (graphed == eager).all():
+        raise AssertionError("csg_area: graphed frame != eager frame")
+    plans = {}
+    for kind in ("hits", "shadow"):
+        gids, _ = I.static_columns(sc, kind)
+        for idx, _, plan, packed in CSG._root_plans(sc, gids):
+            plans[id(packed)] = (idx, plan)
+    differing = checked = 0
+    shapes = {}
+    with torch.no_grad():
+        for ts, packed in rec.calls:
+            idx, plan = plans[id(packed)]
+            want = ts.index_copy(1, idx, CSG._filter_pairwise(ts[:, idx],
+                                                              plan))
+            got = CC.csg_filter(ts, packed)
+            differing += int((got.view(torch.int32)
+                              != want.view(torch.int32)).any(-1).sum())
+            checked += ts.shape[0]
+            shapes.setdefault(tuple(ts.shape), (ts, idx, plan, packed))
+    out = dict(frame_calls=per_frame, rows_checked=checked,
+               differing_rows=differing,
+               shapes={f"{r}x{c}": n for (r, c), n in collections.Counter(
+                   tuple(ts.shape) for ts, _ in rec.calls).items()})
+    log(f"  [5c] csg_filter_kernel on csg_area: {json.dumps(out)}")
+    if differing:
+        raise AssertionError(f"csg_filter_kernel: {differing} of {checked} "
+                             f"rows differ from the plain chain")
+    del rec
+    out["timing"] = {}
+    with torch.no_grad():
+        for name, rows in (("shadow", 409_600), ("shading", 4096)):
+            ts, idx, plan, packed = shapes[(rows, 16)]
+            out["timing"][name] = csg_numbers(CC, ts, idx, plan, packed)
+            log(f"  [5c] {name}: {json.dumps(out['timing'][name])}")
     return out
 
 
@@ -3333,6 +3462,9 @@ def main(argv=None):
                     help="only phase 10d's host-clock breakdown of graphed "
                          "dragons_equiv frames, as one JSON line (phase 10 "
                          "runs it in a process of its own)")
+    ap.add_argument("--csg-filter", action="store_true",
+                    help="only phase 5c (the CSG filter's kernel on "
+                         "csg_area), as one JSON line")
     ap.add_argument("--train-profiles", action="store_true",
                     help="only phase 7d's profiled train gradients, as one "
                          "JSON line (phase 7 runs them in a process of its "
@@ -3354,6 +3486,15 @@ def main(argv=None):
     if args.train_profiles:
         print(json.dumps(train_profiles()))
         return 0
+    if args.csg_filter:
+        from raytracer_tpu_torch.ops import csg_cuda as CC
+
+        _, build_log = CC.build_library()
+        print(json.dumps({"device": smi_line(), "ptxas": [
+            line.strip() for line in build_log.splitlines()
+            if any(k in line for k in ("registers", "spill", "smem"))],
+            **csg_phase(torch.device("cuda"))}))
+        return 0
     import numpy as np
 
     from raytracer_tpu_torch import scenes
@@ -3361,6 +3502,7 @@ def main(argv=None):
     from raytracer_tpu_torch.core import render as R
     from raytracer_tpu_torch.core.render import color_at, render
     from raytracer_tpu_torch.mesh_cases import TIE_INDEX
+    from raytracer_tpu_torch.ops import csg_cuda as CC
     from raytracer_tpu_torch.ops import gather_cuda as GA
     from raytracer_tpu_torch.ops import graph_cuda as GC
     from raytracer_tpu_torch.ops import mesh_cuda as MC
@@ -3388,13 +3530,14 @@ def main(argv=None):
     log(f"[1] device: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, together
-        builds = [pool.submit(m.build_library) for m in (MC, GC, GA, PC)]
+    with ThreadPoolExecutor(5) as pool:     # one nvcc per source, together
+        builds = [pool.submit(m.build_library) for m in (MC, GC, GA, PC, CC)]
         ((lib_path, build_log), (tg_path, _), (ga_path, ga_log),
-         (pc_path, pc_log)) = [b.result() for b in builds]
-    log(f"  built {lib_path.name}, {tg_path.name}, {ga_path.name} and "
-        f"{pc_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in (build_log + ga_log + pc_log).splitlines():
+         (pc_path, pc_log), (cc_path, cc_log)) = [b.result() for b in builds]
+    log(f"  built {lib_path.name}, {tg_path.name}, {ga_path.name}, "
+        f"{pc_path.name} and {cc_path.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in (build_log + ga_log + pc_log + cc_log).splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "error",
                                    "Compiling entry")):
             log("  ptxas:", line.strip())
@@ -3541,6 +3684,7 @@ def main(argv=None):
                                  "glass_mesh": (glass, g_cam),
                                  "flagship": (flagship, f_cam)}, results)
     del flagship
+    csg = csg_phase(dev)
 
     lap(5)
 
@@ -3728,9 +3872,27 @@ def main(argv=None):
         "library_ms": None,
         "device": device("pattern_color_kernel"),
         "by_call": pattern["timing"],
+    }, {
+        "name": "csg_filter",
+        "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/csg_filter.cu",
+        "replaces": "raytracer_tpu/core/csg.py:_filter_pairwise",
+        "replaces_kind": "XLA, not Pallas",
+        "launches": csg["frame_calls"]["csg"],
+        "plain_launches": csg["frame_calls"]["csg_plain"],
+        "rows_checked": csg["rows_checked"],
+        "differing_rows": csg["differing_rows"],
+        "call": "shadow",
+        **{k: csg["timing"]["shadow"][k] for k in (
+            "rows", "cols", "graph_ms", "bound_ms", "bound_by",
+            "bound_share")},
+        "ms": csg["timing"]["shadow"]["graph_ms"],
+        "plain_ms": csg["timing"]["shadow"]["plain_graph_ms"],
+        "library_ms": None,
+        "by_call": csg["timing"],
     }]
     summary = dict(device=smi, frames=results, kernels=kernels,
-                   pattern=pattern,
+                   pattern=pattern, csg=csg,
                    device_totals=totals,
                    dragons_profile=prof, cli_checks=cli["checks"], grad=grad,
                    phase8=p8, fuzz=fuzz, compiled=p10, phase_s=phase_s,

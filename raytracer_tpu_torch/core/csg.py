@@ -11,7 +11,9 @@ in-subtree) hits were left/right hits. Processing nodes bottom-up with an
 "alive" mask reproduces the recursion exactly. The uint64 membership masks
 stay host-side numpy; the column indices and per-node bit masks they give
 are tensors made once per scene (:func:`_root_plans`). Ties in t break by
-column index in both filters.
+column index in both filters. On the card a root of up to 32 columns goes
+to one hand-written kernel where no gradient flows
+(``ops/csg_cuda.py``), bit for bit the pairwise filter's result.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core import types as T
+from raytracer_tpu_torch.ops import csg_cuda as CC
 from raytracer_tpu_torch.utils import profiling as P
 
 
@@ -42,25 +45,32 @@ def apply_csg(scene: T.Scene, ts, static_gids: np.ndarray, c_static: int):
 
     ``ts`` is [R, C]; only the first ``c_static`` columns (gids
     ``static_gids``) can belong to CSG trees. Returns the filtered ts (a
-    new tensor; the input is not written). The body is the stage mark
-    ``csg_filter`` (``utils/profiling.mark``), on the shading path and on
-    the shadow path alike.
+    new tensor; the input is not written). A root goes to the kernel
+    (``csg_cuda.csg_filter``) where ``csg_cuda.takes_kernel`` holds, else
+    to a plain filter (counted in ``csg_cuda.LAUNCHES["csg_plain"]``).
+    The body is the stage mark ``csg_filter`` (``utils/profiling.mark``),
+    on the shading path and on the shadow path alike.
     """
     if not scene.static.csg_nodes:
         return ts
     with P.mark("csg_filter"):
-        for idx, pairwise, plan in _root_plans(scene, static_gids):
-            sub = ts[:, idx]                                # [R, Cr]
-            new_sub = (_filter_pairwise if pairwise
-                       else _filter_sorted)(sub, plan)
-            ts = ts.index_copy(1, idx, new_sub)
+        for idx, pairwise, plan, packed in _root_plans(scene, static_gids):
+            if CC.takes_kernel(ts, packed):
+                ts = CC.csg_filter(ts, packed)
+            else:
+                sub = ts[:, idx]                            # [R, Cr]
+                new_sub = (_filter_pairwise if pairwise
+                           else _filter_sorted)(sub, plan)
+                ts = ts.index_copy(1, idx, new_sub)
+                CC.LAUNCHES["csg_plain"] += 1
     return ts
 
 
 def _root_plans(scene: T.Scene, static_gids: np.ndarray):
     """Per CSG root with a column among ``static_gids``: (its columns as a
-    tensor, whether the pairwise filter takes them, its node plan), made
-    once per scene and column layout."""
+    tensor, whether the pairwise filter takes them, its node plan, the
+    kernel's packed plan or None: ``csg_cuda.pack_plan``), made once per
+    scene and column layout."""
     def build():
         st = scene.static
         member = {gid: (under, left) for gid, under, left in st.csg_members}
@@ -81,7 +91,9 @@ def _root_plans(scene: T.Scene, static_gids: np.ndarray):
             plans.append((torch.as_tensor(cols, device=scene.device),
                           len(cols) <= PAIRWISE_MAX_COLS,
                           _node_plan(nodes, under_bits, left_bits,
-                                     scene.device)))
+                                     scene.device),
+                          CC.pack_plan(cols, nodes, under_bits, left_bits,
+                                       len(static_gids), scene.device)))
         return plans
 
     return scene.const(("csg", static_gids.tobytes()), build)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.constants import EPSILON
+from raytracer_tpu_torch.ops import csg_cuda as CC
 from raytracer_tpu_torch.ops import gather_cuda as TG
 from raytracer_tpu_torch.ops import patterns_cuda as PC
 from raytracer_tpu_torch.utils import profiling as P
@@ -344,8 +345,8 @@ def k1_tests() -> int:
 
 
 def reset_launches():
-    """Zeroes the launch counters of K1, K1b, table_gather and the pattern
-    stage, and K1's test counters on the card."""
+    """Zeroes the launch counters of K1, K1b, table_gather, the pattern
+    stage and the CSG filter, and K1's test counters on the card."""
     _wrapper.launches = 0
     live_supergroups.launches = 0
     for k in _wrapper.launches_by_mode:
@@ -354,18 +355,20 @@ def reset_launches():
         counter.zero_()
     TG.reset_launches()
     PC.reset_launches()
+    CC.reset_launches()
 
 
 def host_counts() -> dict:
     """The launch counters kept on the host: K1's ("k1" and by mode),
     K1b's ("prepass"), table_gather's, one a kernel ("gather" and
     "gather_*": ops/gather_cuda.launch_counts, with the bytes its calls
-    must move, "gather_bytes"), and the pattern stage's ("pattern", its
+    must move, "gather_bytes"), the pattern stage's ("pattern", its
     kernel's launches, and "pattern_plain", its plain evaluations:
-    ops/patterns_cuda.launch_counts)."""
+    ops/patterns_cuda.launch_counts) and the CSG filter's ("csg" and
+    "csg_plain": ops/csg_cuda.launch_counts)."""
     return {"k1": _wrapper.launches, **_wrapper.launches_by_mode,
             "prepass": live_supergroups.launches, **TG.launch_counts(),
-            **PC.launch_counts()}
+            **PC.launch_counts(), **CC.launch_counts()}
 
 
 def launch_counts() -> dict:
@@ -390,6 +393,7 @@ def add_launches(delta: dict, sign: int = 1):
     live_supergroups.launches += sign * delta["prepass"]
     TG.add_launches(delta, sign)
     PC.add_launches(delta, sign)
+    CC.add_launches(delta, sign)
 
 
 def _cross(a, b):

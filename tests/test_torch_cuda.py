@@ -4,7 +4,8 @@ the mesh query's gradient and a render loss's gradients on cuda against
 the CPU; table_gather's kernels against their plain versions, captured in
 a graph, and in a flagship train step graphed against eager; the pattern
 stage's kernel against its plain version bit for bit, and which frames and
-steps take it.
+steps take it; the CSG filter's kernel against the pairwise filter bit for
+bit, and which frames take it.
 
 Every test here carries the ``cuda`` marker and skips itself when there is
 no CUDA device. The file imports neither JAX nor the JAX package, so on a
@@ -1791,3 +1792,206 @@ def test_train_steps_on_cuda_take_the_plain_patterns():
     render(sc, cam, quantize=True)
     counts = MC.launch_counts()
     assert counts["pattern"] > 0 and counts["pattern_plain"] == 0
+
+
+# ------------------------------------------------- the CSG filter's kernel
+
+def _csg_area_on_card(hsize=64, vsize=64):
+    from raytracer_tpu_torch.scene.yaml_scene import parse_scene
+
+    return parse_scene(scenes.csg_area_yaml(hsize, vsize), device="cuda")
+
+
+def _assert_same_bits(got, want, what):
+    same = _bits(got) == _bits(want)
+    if not bool(same.all()):
+        rows = (~same).any(-1).nonzero()[:3, 0]
+        raise AssertionError(
+            f"{what}: {int((~same).sum())} of {same.numel()} entries differ; "
+            f"first rows {got[rows].tolist()} vs {want[rows].tolist()}")
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+def _kernel_vs_pairwise(ts, idx, plan, packed, what):
+    """csg_filter_kernel against the pairwise filter copied back into the
+    table, bit for bit: a new table (the input unwritten, the columns
+    outside the root copied), also from a misaligned table; one launch a
+    call."""
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.ops import csg_cuda as CC
+
+    keep = ts.clone()
+    want = ts.index_copy(1, idx, CSG._filter_pairwise(ts[:, idx], plan))
+    before = CC.LAUNCHES["csg"]
+    got = CC.csg_filter(ts, packed)
+    odd = CC.csg_filter(_misaligned(ts), packed)
+    torch.cuda.synchronize()
+    assert CC.LAUNCHES["csg"] == before + 2
+    for out, how in ((got, "new"), (odd, "misaligned")):
+        _assert_same_bits(out, want, f"{what}, {how}")
+    _assert_same_bits(ts, keep, f"{what}: the input was written")
+    assert int(torch.isinf(want).sum()) > int(torch.isinf(ts).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,rows", [("shadow", 409_600), ("hits", 4096)])
+def test_csg_kernel_bit_equal_pairwise_on_csg_area(kind, rows):
+    """csg_area's own plan (csg.rs's tree, 16 columns, 4 nodes) at its
+    shadow call's shape (a tile's 4,096 rays x 100 samples) and its
+    shading call's, on random t with planted ties, negative t, +-inf, NaN
+    and signed zeros: the kernel equals the pairwise filter bit for bit."""
+    _require_cuda()
+    from csg_cases import random_ts
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.core import intersect as I
+
+    _, sc = _csg_area_on_card()
+    gids, _ = I.static_columns(sc, kind)
+    (idx, _, plan, packed), = CSG._root_plans(sc, gids)
+    assert packed.others is None and len(packed.ops) == 4
+    assert len(gids) == 16
+    ts = torch.as_tensor(random_ts(np.random.default_rng(23), rows, 16),
+                         device="cuda")
+    _kernel_vs_pairwise(ts, idx, plan, packed, f"csg_area {kind}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_csg_kernel_bit_equal_pairwise_on_random_trees(seed):
+    """Random trees of 2 to 5 nodes at widths 3 to 32 (both width
+    buckets), in tables with columns outside the tree, which the kernel
+    copies untouched; one root of 16 consecutive columns inside a wider
+    table."""
+    _require_cuda()
+    from csg_cases import random_tree, random_trees, random_ts
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.ops import csg_cuda as CC
+
+    rng = np.random.default_rng(100 + seed)
+    cases = list(random_trees(rng, 12))
+    _, nodes, under, left = random_tree(rng, 5, 16, 16)
+    cases.append((list(range(4, 20)), nodes, under, left, 24))
+    for i, (cols, nodes, under, left, n_cols) in enumerate(cases):
+        plan = CSG._node_plan(nodes, under, left, "cuda")
+        packed = CC.pack_plan(cols, nodes, under, left, n_cols, "cuda")
+        if i == len(cases) - 1:
+            assert packed.others is not None
+        ts = torch.as_tensor(random_ts(rng, 5000, n_cols), device="cuda")
+        idx = torch.as_tensor(cols, device="cuda")
+        _kernel_vs_pairwise(ts, idx, plan, packed,
+                            f"tree {i}: {len(cols)} of {n_cols} columns, "
+                            f"{len(nodes)} nodes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(2))
+def test_csg_kernel_two_roots_as_apply_csg_runs_them(seed):
+    """Two roots on disjoint columns of one table, as apply_csg runs them:
+    each into a new table, the second from the first's; equal bit for bit
+    to the pairwise filter of each copied back in turn, the columns of
+    neither root untouched."""
+    _require_cuda()
+    from csg_cases import random_tree, random_ts
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.ops import csg_cuda as CC
+
+    rng = np.random.default_rng(200 + seed)
+    n_cols = 40
+    perm = rng.permutation(n_cols)
+    ts = torch.as_tensor(random_ts(rng, 5000, n_cols), device="cuda")
+    want, got, start = ts, ts, 0
+    for width in (int(rng.integers(3, 17)), int(rng.integers(17, 23))):
+        n_nodes = int(rng.integers(2, min(5, width - 1) + 1))
+        _, nodes, under, left = random_tree(rng, n_nodes, width, width)
+        cols = sorted(perm[start:start + width].tolist())
+        start += width
+        plan = CSG._node_plan(nodes, under, left, "cuda")
+        packed = CC.pack_plan(cols, nodes, under, left, n_cols, "cuda")
+        idx = torch.as_tensor(cols, device="cuda")
+        want = want.index_copy(1, idx,
+                               CSG._filter_pairwise(want[:, idx], plan))
+        got = CC.csg_filter(got, packed)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want, "two roots")
+    rest = torch.as_tensor(sorted(perm[start:].tolist()), device="cuda")
+    _assert_same_bits(got[:, rest], ts[:, rest], "columns of no root")
+
+
+@pytest.mark.cuda
+def test_csg_kernel_graph_replay_equals_eager():
+    """The kernel captured in a CUDA graph on a static table and replayed
+    on two fresh tables gives the eager call's bits on each."""
+    _require_cuda()
+    from csg_cases import random_ts
+    from raytracer_tpu_torch.core import csg as CSG
+    from raytracer_tpu_torch.core import intersect as I
+    from raytracer_tpu_torch.ops import csg_cuda as CC
+
+    _, sc = _csg_area_on_card()
+    gids, _ = I.static_columns(sc, "shadow")
+    packed = CSG._root_plans(sc, gids)[0][3]
+    rng = np.random.default_rng(4)
+
+    def fresh():
+        return torch.as_tensor(random_ts(rng, 40_000, 16), device="cuda")
+
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        CC.csg_filter(static, packed)                 # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    before = MC.host_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = CC.csg_filter(static, packed)
+    MC.add_launches({k: v - before[k] for k, v in MC.host_counts().items()},
+                    -1)
+    for _ in range(2):
+        static.copy_(fresh())
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_same_bits(out, CC.csg_filter(static, packed), "replay")
+
+
+@pytest.mark.cuda
+def test_csg_area_frames_take_the_kernel():
+    """A graphed csg_area frame (random jitter, seed 0) equals its
+    graphs=False frame bit for bit, both with every filter call in the
+    kernel: two a level body (the shading path and the area light's
+    shadow path), "csg_plain" 0, the graphed side counted from the level
+    logs; a gradient through the rays (a pose) takes the plain filter
+    only."""
+    _require_cuda()
+    from raytracer_tpu_torch.camera import ray_grid
+    from raytracer_tpu_torch.core import tile_program as TP
+    from raytracer_tpu_torch.parallel import render_loss_and_grad
+
+    cam, sc = _csg_area_on_card()
+    render(sc, cam, quantize=True)                    # captures
+    frames, counts = {}, {}
+    for graphs in (True, False):
+        MC.reset_launches()
+        frames[graphs] = render(sc, cam, quantize=True, graphs=graphs)
+        counts[graphs] = dict(MC.launch_counts())
+    np.testing.assert_array_equal(frames[True], frames[False])
+    assert frames[True].std() > 5
+    bodies = len(TP.program_of(sc).levels)
+    assert bodies > 0
+    for c in counts.values():
+        assert (c["csg"], c["csg_plain"]) == (2 * bodies, 0)
+    o, d = ray_grid(cam, device="cuda")
+    og, dg = o[:512].clone().requires_grad_(), d[:512].clone().requires_grad_()
+    MC.reset_launches()
+    render_loss_and_grad({}, lambda _: sc, og, dg, torch.zeros_like(og))
+    c = MC.launch_counts()
+    assert c["csg"] == 0 and c["csg_plain"] > 0
